@@ -1,0 +1,522 @@
+#!/usr/bin/env python3
+"""Drive tpucv_torch's yolo8_det serving path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. card     the card's name and power limit (nvidia-smi), torch and CUDA.
+2. build    builds every CUDA source of the port (one nvcc each, in
+            parallel) and prints the build time and ptxas report.
+3. kernel   the NMS kernel against its plain PyTorch version on the cases
+            of tpucv_torch/ops/nms_cases.py: those of
+            tests/test_pallas_nms.py, the 60/120-deep chains and
+            class-offset sets at B=128, K=512/1024, IoU 0.5/0.7: keep
+            masks must be identical.
+4. serve    YOLOv8n, nc=80, 640 input, bf16 autocast, random weights from
+            torch.Generator seed 0 with the class biases zeroed and the
+            class kernels scaled by CLS_GAIN. First the f32 forward on the
+            card is held against the CPU's. Then a server (make_server,
+            batch 8) answers 16 concurrent raw-RGB requests; launch counts
+            are zeroed just before the requests and read just after. The
+            served images' NMS candidates, through the kernel and through
+            its plain version, must give identical keep masks, and the
+            plain route the server's detections (count and classes). A
+            batch of 8 is then timed stage by stage.
+5. bench    the bench.py:main program: B=128 uint8 480x640, letterbox_static,
+            forward, decode_boxes(pre_nms_topk=512), timed with CUDA
+            events; the kernel's and the plain version's times at the main
+            path's shapes and the least time the card could take.
+
+The line before the last holds {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}. Without CUDA, or without the repository
+beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import numpy as np
+
+H100_HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+H100_FP32_FLOPS = 67e12             # non-tensor f32, H100 SXM data sheet
+IOU_OPS = 14       # min, max, sub, clamp per axis (8), mul, add, sub, add,
+AREA_OPS = 5       # div, compare; area: two sub, two clamp, one mul
+CLS_GAIN = 3000.0  # the init's class logits are ~1e-4: scores would all
+                   # round to 0.5 in bf16; scaled up they spread
+BENCH_BATCH = 128  # bench.py:main's batch
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- phases --
+
+class Smoke:
+    def __init__(self, torch):
+        self.torch = torch
+        self.dev = torch.device("cuda")
+        self.mismatches = 0
+        self.max_abs_err = 0.0
+        self.shapes = []          # kernel timings at the main path's shapes
+
+    def sync(self):
+        self.torch.cuda.synchronize()
+
+    def compare_keep(self, sb, ss, thr, tag):
+        """Kernel vs plain keep mask on the same CUDA tensors."""
+        from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
+
+        torch = self.torch
+        keep = nms_keep(sb, ss, thr)
+        self.sync()
+        ref = nms_keep_reference(sb, ss, thr)
+        self.sync()
+        bad = int((keep != ref).sum())
+        err = float((keep.float() - ref.float()).abs().max()) \
+            if keep.numel() else 0.0
+        self.mismatches += bad
+        self.max_abs_err = max(self.max_abs_err, err)
+        check(bad == 0, f"{tag}: kernel and plain keep masks differ in "
+                        f"{bad} places")
+        return keep
+
+    def phase_kernel(self):
+        from tpucv_torch.ops.nms_cases import chain_keep, kernel_cases
+
+        torch = self.torch
+        rows = {}
+        for name, ((boxes, scores), thr) in kernel_cases().items():
+            order = np.argsort(-scores, axis=-1, kind="stable")
+            sb = torch.from_numpy(np.take_along_axis(
+                boxes, order[..., None], 1)).to(self.dev)
+            ss = torch.from_numpy(np.take_along_axis(scores, order, 1)) \
+                .to(self.dev)
+            keep = self.compare_keep(sb, ss, thr, name)
+            if name.startswith("chain"):
+                got = torch.nonzero(keep[0]).flatten().tolist()
+                check(got == chain_keep(name),
+                      f"{name}: greedy keeps every second box, got {got}")
+            rows[name] = int(keep.sum())
+        emit({"phase": "kernel", "cases": len(rows), "kept": rows,
+              "mismatches": self.mismatches,
+              "max_abs_err": self.max_abs_err})
+
+    def serving_setup(self):
+        from tpucv_torch.builder import export_from_registry
+
+        torch = self.torch
+        cfg, algo_cls, _ = export_from_registry("yolo8_det")
+        check(cfg.arch.model_type == "n" and cfg.dataset.input_size == 640
+              and cfg.num_classes == 80 and cfg.train.mixed_precision,
+              "yolo8_det config is not YOLOv8n/640/nc80/bf16")
+        algo = algo_cls(cfg, device=self.dev)
+        model = algo.init_variables(seed=0)
+        with torch.no_grad():
+            for head in model.model[22].cv3:
+                head[-1].bias.zero_()
+                head[-1].weight.mul_(CLS_GAIN)
+        return algo, model
+
+    def phase_forward_f32(self, model):
+        """The f32 forward on the card (TF32 off) against the same weights
+        on the CPU, on a small input."""
+        import copy
+
+        torch = self.torch
+        x = torch.from_numpy(np.random.default_rng(3).random(
+            (2, 128, 128, 3), dtype=np.float32))
+        with torch.inference_mode():
+            gpu = model(x.to(self.dev))
+            cpu = copy.deepcopy(model).cpu().to(
+                memory_format=torch.contiguous_format)(x)
+        rel = max(float((g.float().cpu() - c).abs().max() / c.abs().max())
+                  for g, c in zip(gpu, cpu))
+        check(all(torch.isfinite(g).all() for g in gpu), "non-finite maps")
+        check(rel < 1e-3, f"f32 forward on the card differs from the CPU by "
+                          f"{rel} of the largest value")
+        emit({"phase": "forward_f32", "shapes": [list(g.shape) for g in gpu],
+              "max_rel_err_vs_cpu": rel})
+
+    def _images(self, n):
+        rng = np.random.default_rng(0)
+        sizes = [(480, 640), (427, 640), (300, 500)]
+        imgs = []
+        for k in range(n):
+            h, w = sizes[k % len(sizes)]
+            yy, xx = np.mgrid[0:h, 0:w]
+            base = np.stack([xx * 255 // w, yy * 255 // h,
+                             (xx + yy) * 255 // (h + w)], -1)
+            noise = rng.integers(-40, 41, (h, w, 3))
+            imgs.append(np.clip(base + noise, 0, 255).astype(np.uint8))
+        return imgs
+
+    def phase_serve(self, algo, model):
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.serving import make_server
+
+        imgs = self._images(16)
+        t0 = time.perf_counter()
+        server = make_server(algo, model, host="127.0.0.1", port=0,
+                             batch_size=8, model_name="yolo8_det")
+        warm_s = time.perf_counter() - t0
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        results = [None] * len(imgs)
+        try:
+            port = server.server_address[1]
+
+            def post(k):
+                h, w = imgs[k].shape[:2]
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/predict",
+                    data=imgs[k].tobytes(),
+                    headers={"Content-Type": "application/x-raw-rgb",
+                             "X-Height": str(h), "X-Width": str(w)})
+                try:
+                    with urllib.request.urlopen(req, timeout=300) as r:
+                        results[k] = (r.status, json.loads(r.read()))
+                except Exception as e:  # noqa: BLE001 - reported below
+                    results[k] = (getattr(e, "code", -1), str(e))
+
+            posters = [threading.Thread(target=post, args=(k,))
+                       for k in range(len(imgs))]
+            nms_keep.launches = 0            # just before the main path
+            t0 = time.perf_counter()
+            for p in posters:
+                p.start()
+            for p in posters:
+                p.join(timeout=600)
+            wall = time.perf_counter() - t0
+            launches = nms_keep.launches     # just after
+            check(not any(p.is_alive() for p in posters), "requests hung")
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                        timeout=60) as r:
+                stats = json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.batcher.stop()
+            server.server_close()
+            thread.join(timeout=30)
+        statuses = [r[0] for r in results]
+        check(all(s == 200 for s in statuses), f"statuses {statuses}: "
+              f"{[r[1] for r in results if r[0] != 200][:2]}")
+        n_dets = [len(r[1]["detections"]) for r in results]
+        check(max(n_dets) > 0, "no request got a detection")
+        check(launches > 0, "the NMS kernel was not launched while serving")
+        emit({"phase": "serve", "requests": len(imgs), "statuses_ok": True,
+              "detections": n_dets, "nms_launches": launches,
+              "warmup_s": warm_s, "wall_s": wall, "stats": stats})
+        return imgs, results, launches
+
+    def phase_serve_vs_plain(self, algo, model, imgs, results):
+        """The served images' NMS candidates, again through the kernel and
+        through its plain version: identical keep masks, and the plain
+        route's detections (count and classes per image) equal the
+        server's."""
+        from tpucv_torch.algorithms.yolov8 import yolo_decode_args
+        from tpucv_torch.decode.yolov8 import topk_candidates
+        from tpucv_torch.ops.cuda_nms import nms_keep_reference, select_kept
+        from tpucv_torch.ops.preprocess import (host_letterbox_geom,
+                                                letterbox_images,
+                                                normalize_images)
+
+        torch = self.torch
+        kw = yolo_decode_args(algo.cfg, algo.nc, None)
+        thr, conf = kw["iou_threshold"], kw["conf_threshold"]
+        index = [(im,) for im in imgs]
+        valid_cands, kept = [], []
+        capture = None
+        for start in range(0, len(imgs), 8):
+            idxs = list(range(start, start + 8))
+            canv, hw, _, _ = algo._fill_canvases(index, idxs, 8,
+                                                 algo.raw_canvas)
+            geom, hs = host_letterbox_geom(hw, algo.input_size)
+            with torch.inference_mode():
+                lb, _, _ = letterbox_images(
+                    torch.from_numpy(canv).to(self.dev),
+                    torch.from_numpy(hw).to(self.dev), algo.input_size,
+                    geom=torch.from_numpy(geom).to(self.dev),
+                    scale=torch.from_numpy(hs).to(self.dev))
+                x = normalize_images(lb, algo.dtype)
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    raw = model(x)
+                boxes, scores, cls = topk_candidates(
+                    raw, kw["reg_max"], kw["strides"], conf,
+                    kw["pre_nms_topk"])
+                off = (boxes + cls[..., None].float() * 7680.0).contiguous()
+                self.compare_keep(off, scores, thr,
+                                  f"served batch {start // 8}")
+                idx, valid = select_kept(nms_keep_reference(off, scores, thr),
+                                         scores, None, kw["max_det"])
+                idx = idx.long()
+                valid = valid & (torch.gather(scores, 1, idx) > conf)
+                plain_cls = torch.gather(cls, 1, idx)
+            for j, i in enumerate(idxs):
+                served = sorted(d["class_id"]
+                                for d in results[i][1]["detections"])
+                plain = sorted(plain_cls[j][valid[j]].tolist())
+                check(served == plain, f"image {i}: served classes {served} "
+                                       f"!= plain NMS classes {plain}")
+            if capture is None:
+                capture = (off, scores)
+            valid_cands += (scores > 0).sum(1).tolist()
+            kept += valid.sum(1).tolist()
+        check(all(v > 0 for v in valid_cands), "no valid candidates")
+        check(any(k < v for k, v in zip(kept, valid_cands)),
+              "NMS suppressed nothing")
+        emit({"phase": "serve_vs_plain", "K": kw["pre_nms_topk"],
+              "valid_candidates": valid_cands, "kept": kept,
+              "identical": True})
+        return capture, thr
+
+    def phase_breakdown(self, algo, model, imgs, reps=5):
+        """Where a served batch of 8 spends its time, on the host clock with
+        a device sync after each stage (median of ``reps``), beside one
+        whole ``_batched_detections`` batch without HTTP."""
+        from tpucv_torch.algorithms.yolov8 import yolo_decode_args
+        from tpucv_torch.decode.yolov8 import decode_boxes
+        from tpucv_torch.ops.preprocess import (host_letterbox_geom,
+                                                letterbox_images,
+                                                normalize_images)
+
+        torch = self.torch
+        kw = yolo_decode_args(algo.cfg, algo.nc, None)
+        index = [(im,) for im in imgs[:8]]
+        stages = {}
+
+        def lap(name, t0):
+            self.sync()
+            t1 = time.perf_counter()
+            stages.setdefault(name, []).append((t1 - t0) * 1e3)
+            return t1
+
+        for _ in range(reps):
+            with torch.inference_mode():
+                t = time.perf_counter()
+                canv, hw, _, _ = algo._fill_canvases(index, range(8), 8,
+                                                     algo.raw_canvas)
+                geom, hs = host_letterbox_geom(hw, algo.input_size)
+                t = lap("fill_canvases", t)
+                dev = [torch.from_numpy(a).to(self.dev)
+                       for a in (canv, hw, geom, hs)]
+                t = lap("h2d", t)
+                lb, _, _ = letterbox_images(dev[0], dev[1], algo.input_size,
+                                            geom=dev[2], scale=dev[3])
+                t = lap("letterbox", t)
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    raw = model(normalize_images(lb, algo.dtype))
+                t = lap("normalize_forward", t)
+                out = decode_boxes(raw, **kw)
+                t = lap("decode_nms", t)
+                [o.cpu().numpy() for o in out]
+                lap("d2h", t)
+                t = time.perf_counter()
+            list(algo._batched_detections(model, index, 8, 0.25))
+            lap("direct_batch_total", t)
+        med = {k: float(np.median(v)) for k, v in stages.items()}
+        emit({"phase": "breakdown", "batch": 8, "reps": reps, "median_ms": med,
+              "runs_ms": stages})
+
+    def phase_bench(self, model):
+        from tpucv_torch.decode.yolov8 import decode_boxes, topk_candidates
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.preprocess import (letterbox_static,
+                                                normalize_images)
+
+        torch = self.torch
+        B, H, W, S = BENCH_BATCH, 480, 640, 640
+        rng = np.random.default_rng(0)
+        raw_u8 = torch.from_numpy(
+            rng.integers(0, 255, (B, H, W, 3), dtype=np.uint8)).to(self.dev)
+        kw = dict(conf_threshold=0.25, iou_threshold=0.7, max_det=300)
+
+        def forward():
+            lb, _, _ = letterbox_static(raw_u8, S)
+            x = normalize_images(lb, torch.bfloat16)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return model(x)
+
+        def program():
+            return decode_boxes(forward(), pre_nms_topk=512, **kw)
+
+        with torch.inference_mode():
+            for _ in range(3):
+                out = program()
+            torch.cuda.synchronize()
+            before = nms_keep.launches
+            iters = 10
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                out = program()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / iters
+            check(nms_keep.launches - before == iters, "bench skipped NMS")
+            check(all(torch.isfinite(o.float()).all() for o in out),
+                  "non-finite bench output")
+            raw = forward()
+            c512 = topk_candidates(raw, pre_nms_topk=512,
+                                   conf_threshold=0.25)
+            c1024 = topk_candidates(raw, pre_nms_topk=1024,
+                                    conf_threshold=0.25)
+        emit({"phase": "bench", "batch": B, "ms_per_batch": ms,
+              "img_per_s": B * 1000.0 / ms,
+              "detections_mean": float(out[3].sum(1).float().mean())})
+        offs = [((c[0] + c[2][..., None].float() * 7680.0).contiguous(),
+                 c[1]) for c in (c512, c1024)]
+        return offs, kw["iou_threshold"]
+
+    def bound(self, sb, ss, keep, thr):
+        """Least time for the greedy keep mask on these inputs: bytes (boxes
+        and scores read once, the mask written once) over HBM bandwidth,
+        and the f32 operations this data needs over the f32 peak: each
+        valid box is tested against the kept boxes above it, up to the
+        first one that suppresses it."""
+        torch = self.torch
+        B, K = ss.shape
+        nbytes = B * K * (16 + 4 + 1)
+        x1, y1, x2, y2 = sb.unbind(-1)
+        area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+        ix = (torch.minimum(x2[:, :, None], x2[:, None]) -
+              torch.maximum(x1[:, :, None], x1[:, None])).clamp(min=0)
+        iy = (torch.minimum(y2[:, :, None], y2[:, None]) -
+              torch.maximum(y1[:, :, None], y1[:, None])).clamp(min=0)
+        inter = ix * iy
+        iou = inter / (area[:, :, None] + area[:, None] - inter + 1e-7)
+        lower = torch.ones(K, K, dtype=torch.bool, device=sb.device).tril(-1)
+        cand = lower & keep[:, None, :]               # kept j above i
+        tested = cand.cumsum(-1)
+        hit = cand & (iou > thr)
+        first = hit.float().argmax(-1, keepdim=True)
+        n_tests = torch.where(hit.any(-1), tested.gather(-1, first)[..., 0],
+                              tested[..., -1])
+        valid = ss > 0
+        pairs = int((n_tests * valid).sum())
+        ops = pairs * IOU_OPS + int(valid.sum()) * AREA_OPS
+        t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+        t_ops = ops / H100_FP32_FLOPS * 1e3
+        return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+                else "operations", pairs)
+
+    def time_kernel(self, sb, ss, thr, tag):
+        from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
+
+        torch = self.torch
+
+        def timed(fn, iters):
+            fn()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / iters
+
+        keep = self.compare_keep(sb, ss, thr, tag)
+        # plain, kernel, kernel, plain: one card, in turns
+        p1 = timed(lambda: nms_keep_reference(sb, ss, thr), 3)
+        k1 = timed(lambda: nms_keep(sb, ss, thr), 50)
+        k2 = timed(lambda: nms_keep(sb, ss, thr), 50)
+        p2 = timed(lambda: nms_keep_reference(sb, ss, thr), 3)
+        bound_ms, bound_by, pairs = self.bound(sb, ss, keep, thr)
+        B, K = ss.shape
+        row = {"tag": tag, "B": B, "K": K, "ms": min(k1, k2),
+               "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
+               "plain_ms_runs": [p1, p2], "bound_ms": bound_ms,
+               "bound_by": bound_by, "iou_pairs_needed": pairs,
+               "valid": int((ss > 0).sum()), "kept": int(keep.sum())}
+        self.shapes.append(row)
+        emit({"phase": "kernel_time", **row})
+        return row
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 1
+    # the port: absent when this file is copied out of the repository
+    from tpucv_torch import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    emit({"phase": "card", "nvidia_smi": smi,
+          "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    t0 = time.perf_counter()
+    logs = _build.build(["nms"])
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libs": [_build.lib_path(k).name for k in logs],
+          "ptxas": [ln.strip() for log in logs.values()
+                    for ln in log.splitlines()
+                    if "ptxas info" in ln or "spill" in ln]})
+
+    smoke = Smoke(torch)
+    smoke.phase_kernel()
+    algo, model = smoke.serving_setup()
+    smoke.phase_forward_f32(model)
+    imgs, results, launches = smoke.phase_serve(algo, model)
+    (serve_off, serve_scores), thr = smoke.phase_serve_vs_plain(
+        algo, model, imgs, results)
+    smoke.phase_breakdown(algo, model, imgs)
+    bench_offs, bench_thr = smoke.phase_bench(model)
+
+    main_row = smoke.time_kernel(serve_off, serve_scores, thr,
+                                 "serve_B8_K1024")
+    smoke.time_kernel(*bench_offs[0], bench_thr, "bench_B128_K512")
+    smoke.time_kernel(*bench_offs[1], bench_thr, "bench_B128_K1024")
+
+    print(nvidia_smi(), flush=True)
+    emit({"kernels": [{
+        "name": "nms_keep", "route": "cuda",
+        "source": "tpucv_torch/csrc/nms.cu",
+        "replaces": "tpucv/ops/pallas_nms.py:28 _nms_kernel",
+        "launches": launches, "mismatches": smoke.mismatches,
+        "max_abs_err": smoke.max_abs_err,
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": None, "shapes": smoke.shapes}]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

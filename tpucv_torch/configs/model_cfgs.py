@@ -1,0 +1,32 @@
+"""Per-model configs (counterpart of ``tpucv/configs/model_cfgs.py``), with
+tpucv's hyperparameter values. Only the families the port serves are here."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Tuple
+
+from tpucv_torch.configs.base import BaseConfig, DatasetCfg, DecodeCfg
+from tpucv_torch.configs.dataset_cfg import get_dataset_cfg
+from tpucv_torch.registry import config_registry
+
+
+@dataclass
+class Yolo8Arch:
+    model_type: str = "n"            # n/s/m/l/x
+    reg_max: int = 16
+    strides: Tuple[int, ...] = (8, 16, 32)
+
+
+@config_registry("yolo8_det")
+@dataclass
+class Yolo8DetConfig(BaseConfig):
+    arch: Yolo8Arch = field(default_factory=Yolo8Arch)
+    dataset: DatasetCfg = field(default_factory=lambda: DatasetCfg(
+        name="coco", input_size=640))
+    decode: DecodeCfg = field(default_factory=lambda: DecodeCfg(
+        conf_threshold=0.25, iou_threshold=0.7, max_det=300))
+
+    @property
+    def num_classes(self) -> int:
+        return get_dataset_cfg(self.dataset.name)["num_classes"]
