@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive tpucv_torch's yolo8_det serving path once on one NVIDIA GPU.
+"""Drive tpucv_torch's paths once on one NVIDIA GPU: the yolo8_det serving
+path and the four measurement probes.
 
     python3 chip_smoke.py
 
@@ -27,9 +28,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
             forward, decode_boxes(pre_nms_topk=512), timed with CUDA
             events; the kernel's and the plain version's times at the main
             path's shapes and the least time the card could take.
+6. probe_bw python -m tpucv_torch.probes.probe_bw's main at full size
+            (add_one's count zeroed just before, read just after); then
+            add_one on the 1,638,400x128 bf16 array in its six views, bit
+            for bit against x + 1, timed against it and its bound.
+7. probe_conv  the main of probe_conv, probe_conv_parts and probe_conv_v2
+            at full size (conv3x3's count zeroed before each, read after);
+            then conv3x3 at the six shapes in both modes, and the five
+            timing-only variants at 64ch 320^2 B32, each against its plain
+            definition (no element further than 2^-7 of its largest
+            value) and the full conv against F.conv2d (relerr <= 2e-2),
+            timed against the plain version, F.conv2d and the bound.
 
-The line before the last holds {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Without CUDA, or without the repository
+The line before the last holds {"kernels": [...]} (nms_keep, add_one,
+conv3x3); the last line is
+{"ok": true, "device": {...}}. The whole output is also written to
+chiprun_out/chip_smoke.log. Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
 """
 
@@ -41,6 +55,7 @@ import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 
@@ -59,6 +74,22 @@ def emit(obj) -> None:
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+class Tee:
+    """Standard output, copied line for line into a log file."""
+
+    def __init__(self, stream, path: Path):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        self.stream, self.log = stream, open(path, "w")
+
+    def write(self, text):
+        self.log.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.log.flush()
+        self.stream.flush()
 
 
 def check(cond, msg) -> None:
@@ -460,6 +491,154 @@ class Smoke:
         return row
 
 
+def in_turns(plain, kernel, dev, n_plain, n_kernel):
+    """Plain, kernel, kernel, plain on one card; the lower of each pair."""
+    from tpucv_torch.probes.common import timed
+
+    p1 = timed(plain, n_plain, dev)
+    k1 = timed(kernel, n_kernel, dev)
+    k2 = timed(kernel, n_kernel, dev)
+    p2 = timed(plain, n_plain, dev)
+    return {"ms": min(k1, k2), "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
+            "plain_ms_runs": [p1, p2]}
+
+
+def phase_probe_bw(torch) -> dict:
+    """probe_bw's main path, then add_one bit for bit against x + 1 in the
+    six views of the probe's array, timed against it and its bound."""
+    from tpucv_torch.ops.stream import add_one, add_one_reference
+    from tpucv_torch.probes import probe_bw
+    from tpucv_torch.probes.common import stream_bound_ms, timed
+
+    dev = torch.device("cuda")
+    add_one.launches = 0                 # just before the main path
+    probe_rows = probe_bw.main([])
+    launches = add_one.launches          # just after
+    check(launches > 0, "probe_bw did not launch add_one")
+    emit({"phase": "probe_bw_main", "add_one_launches": launches,
+          "rows": probe_rows})
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((probe_bw.TOT, 128), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    nbytes = 2 * x.numel() * x.element_size()
+    bound_ms = stream_bound_ms(nbytes)
+    rows = []
+    for r, c, bh in probe_bw.views(probe_bw.TOT):
+        xx = x.view(r, c)
+        bad = probe_bw.mismatches(xx)
+        check(bad == 0, f"add_one ({r}x{c}): {bad} elements differ from x + 1")
+        row = {"view": [r, c], "tpu_bh": bh, "mismatches": bad,
+               **in_turns(lambda: add_one_reference(xx), lambda: add_one(xx),
+                          dev, 50, 50),
+               "library_ms": timed(lambda: torch.add(xx, 1), 50, dev),
+               "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes}
+        row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+        row["library_gb_per_s"] = nbytes / (row["library_ms"] * 1e-3) / 1e9
+        rows.append(row)
+    emit({"phase": "probe_bw", "views": rows})
+    main_row = rows[0]
+    return {"name": "add_one", "route": "cuda",
+            "source": "tpucv_torch/csrc/stream.cu",
+            "replaces": "scripts/probe_pallas_bw.py:86 ident_kernel "
+                        "(pallas_call :94)",
+            "launches": launches, "mismatches": 0, "max_abs_err": 0.0,
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": main_row["library_ms"],
+            "gb_per_s": main_row["gb_per_s"], "shapes": rows}
+
+
+# the five timing-only decompositions: (the script's name, variant), halo
+# mode, the scripts' bhp=1280 (8 rows at 64ch 320^2)
+TIMING_VARIANTS = [("parts nohalo", "nohalo"), ("parts noshift", "noshift"),
+                   ("parts gemm1", "gemm1"), ("v2 fullnomask", "nomask"),
+                   ("v2 slab2nomask", "nomask")]
+
+
+def phase_probe_conv(torch) -> dict:
+    """The three conv probes' main paths, then conv3x3 against its plain
+    definitions at the probes' shapes, timed against them, F.conv2d and
+    the bound."""
+    from tpucv_torch.ops.conv3x3 import (MODES, conv3x3, conv3x3_reference,
+                                         smem_bytes)
+    from tpucv_torch.probes import probe_conv, probe_conv_parts, probe_conv_v2
+    from tpucv_torch.probes.common import (compare, conv_bound, conv_inputs,
+                                           library_conv, tile_rows_of, timed)
+
+    dev = torch.device("cuda")
+    launches = {}
+    for mod in (probe_conv, probe_conv_parts, probe_conv_v2):
+        name = mod.__name__.rsplit(".", 1)[-1]
+        conv3x3.launches = 0             # just before the main path
+        probe_rows = mod.main([])
+        launches[name] = conv3x3.launches    # just after
+        check(launches[name] > 0, f"{name} did not launch conv3x3")
+        emit({"phase": f"{name}_main", "conv3x3_launches": launches[name],
+              "rows": probe_rows})
+
+    rows = []
+
+    def check_and_time(tag, x, w, plain, mode, variant, tile, lib=None):
+        got = conv3x3(x, w, mode=mode, variant=variant, tile_rows=tile)
+        bad, err, scale = compare(got, plain)
+        check(bad == 0, f"conv3x3 {tag} {mode} {variant}: {bad} elements "
+                        f"off the plain version (max {err} at max {scale})")
+        B, S, _, C = x.shape
+        bound_ms, bound_by = conv_bound(B, S, C)
+        row = {"tag": tag, "B": B, "S": S, "C": C, "mode": mode,
+               "variant": variant, "tile_rows": tile, "mismatches": bad,
+               "max_abs_err": err, "max_abs_plain": scale,
+               "smem_bytes": smem_bytes(S, C), "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               **in_turns(lambda: conv3x3_reference(x, w, variant, tile),
+                          lambda: conv3x3(x, w, mode=mode, variant=variant,
+                                          tile_rows=tile), dev, 2, 20)}
+        if lib is not None:
+            _, lerr, lscale = compare(got, lib)
+            row["relerr_vs_library"] = lerr / lscale
+            check(lerr / lscale <= probe_conv.LIBRARY_RELERR,
+                  f"conv3x3 {tag} {mode}: relerr {lerr / lscale} against "
+                  f"F.conv2d")
+            row["library_ms"] = timed(lambda: library_conv(x, w), 20, dev)
+        rows.append(row)
+        emit({"phase": "probe_conv", **row})
+        return row
+
+    for tag, B, S, C, bhp in probe_conv.SHAPES:
+        x, w = conv_inputs(B, S, C, dev, seed=1)
+        plain, lib = conv3x3_reference(x, w), library_conv(x, w)
+        for mode in MODES:
+            tile = tile_rows_of(bhp, C, S) if mode == "halo" else None
+            row = check_and_time(tag, x, w, plain, mode, "full", tile, lib)
+        del plain, lib
+    main_row = row                       # probe 64ch 320^2 B32, rolling
+    B, S, C = probe_conv_parts.B, probe_conv_parts.S, probe_conv_parts.C
+    x, w = conv_inputs(B, S, C, dev, seed=1)
+    tile = tile_rows_of(1280, C, S)
+    for tag, variant in TIMING_VARIANTS:
+        check_and_time(tag, x, w, conv3x3_reference(x, w, variant, tile),
+                       "halo", variant, tile)
+    return {"name": "conv3x3", "route": "cuda",
+            "source": "tpucv_torch/csrc/conv3x3.cu",
+            "replaces": "scripts/probe_pallas_conv_parts.py:54 "
+                        "make(BHP, mode).kernel (pallas_call :96); "
+                        "scripts/probe_pallas_conv_v2.py:69 "
+                        "make_roll(BHP).kernel (pallas_call :108) and :134 "
+                        "make(BHP, mode).kernel (pallas_call :203); "
+                        "scripts/probe_pallas_conv.py:81 "
+                        "build_packed_conv(B, S, C, BHP).kernel "
+                        "(pallas_call :122)",
+            "launches": sum(launches.values()), "launches_by_probe": launches,
+            "mismatches": sum(r["mismatches"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"], "main_shape":
+                f"{main_row['tag']} {main_row['mode']}", "shapes": rows}
+
+
 def main() -> int:
     import torch
 
@@ -470,6 +649,10 @@ def main() -> int:
     # the port: absent when this file is copied out of the repository
     from tpucv_torch import _build
 
+    # the whole output, beside the end that a caller may keep
+    sys.stdout = Tee(sys.stdout,
+                     Path(__file__).resolve().parent / "chiprun_out" /
+                     "chip_smoke.log")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi()
@@ -480,7 +663,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    logs = _build.build(["nms"])
+    logs = _build.build(["nms", "stream", "conv3x3"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libs": [_build.lib_path(k).name for k in logs],
           "ptxas": [ln.strip() for log in logs.values()
@@ -502,6 +685,9 @@ def main() -> int:
     smoke.time_kernel(*bench_offs[0], bench_thr, "bench_B128_K512")
     smoke.time_kernel(*bench_offs[1], bench_thr, "bench_B128_K1024")
 
+    bw = phase_probe_bw(torch)
+    conv = phase_probe_conv(torch)
+
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
         "name": "nms_keep", "route": "cuda",
@@ -511,7 +697,7 @@ def main() -> int:
         "max_abs_err": smoke.max_abs_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None, "shapes": smoke.shapes}]})
+        "library_ms": None, "shapes": smoke.shapes}, bw, conv]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,22 +1,30 @@
-"""The CUDA NMS kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 This file imports neither JAX nor tpucv, so it runs on a machine with an
 NVIDIA card and PyTorch alone:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Without CUDA every test skips. Keep masks must be identical: the kernel
-computes the IoU in f32 with the reference's association and no FMA
-contraction, so no pair near the threshold may flip.
+Without CUDA every test skips. NMS keep masks must be identical: the
+kernel computes the IoU in f32 with the reference's association and no FMA
+contraction, so no pair near the threshold may flip. ``add_one`` must be
+bit-equal to ``x + 1``. The 3x3 conv may differ from its plain version by
+one bf16 ulp at the largest value (2^-7 * max |plain|): both sum in f32,
+in other orders, and round once to bf16.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from tpucv_torch.ops.cuda_nms import (MAX_BOXES, cuda_nms, nms_keep,
                                       nms_keep_reference)
+from tpucv_torch.ops.conv3x3 import (VARIANTS, _ctas_on_card, conv3x3,
+                                     conv3x3_reference, rolling_tile_rows)
 from tpucv_torch.ops.nms_cases import (chain_keep, class_offset_case,
                                        kernel_cases)
+from tpucv_torch.ops.stream import add_one, add_one_reference
+from tpucv_torch.probes.common import compare, conv_inputs, library_conv
 
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="the CUDA kernel needs an NVIDIA card")
@@ -61,3 +69,100 @@ def test_kernel_refuses_what_it_cannot_take():
         nms_keep(boxes.cuda(), scores, 0.5)
     with pytest.raises(TypeError):
         nms_keep(boxes.cuda().half(), scores.cuda().half(), 0.5)
+
+
+# -- add_one --------------------------------------------------------------
+
+def _bf16_ties(n, seed):
+    """bf16 values where + 1 rounds: |x| >= 256 (ties to even among them)
+    and ordinary normals."""
+    rng = np.random.default_rng(seed)
+    big = rng.integers(-1024, 1024, n).astype(np.float32) * 2.0 ** \
+        rng.integers(0, 4, n)
+    vals = np.where(rng.random(n) < 0.5, big, rng.standard_normal(n) * 3)
+    return torch.from_numpy(vals.astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (8,), (1000, 3), (1024, 128),
+                                   (33, 2048), (4099, 130)])
+def test_add_one_bitwise(shape):
+    x = _bf16_ties(int(np.prod(shape)), len(shape)).reshape(shape).cuda()
+    before = add_one.launches
+    y = add_one(x)
+    torch.cuda.synchronize()
+    assert add_one.launches == before + 1
+    assert torch.equal(y.view(torch.int16),
+                       add_one_reference(x).view(torch.int16))
+
+
+def test_add_one_refuses_what_it_cannot_take():
+    with pytest.raises(TypeError):
+        add_one(torch.ones(8, device="cuda"))
+    with pytest.raises(ValueError):
+        add_one(torch.ones(8, 8, device="cuda", dtype=torch.bfloat16).t())
+
+
+# -- conv3x3 ---------------------------------------------------------------
+
+def _close(got, ref):
+    bad, err, scale = compare(got, ref)
+    assert bad == 0, f"{bad} elements off by more than 2^-7 * {scale} " \
+                     f"(max {err})"
+
+
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("mode", ["halo", "rolling"])
+@pytest.mark.parametrize("B,S", [(2, 20), (1, 33), (3, 5)])
+def test_conv3x3_matches_plain(C, mode, B, S):
+    x, w = conv_inputs(B, S, C, torch.device("cuda"), seed=S)
+    before = conv3x3.launches
+    got = conv3x3(x, w, mode=mode, tile_rows=3 if mode == "halo" else None)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    _close(got, conv3x3_reference(x, w))
+    _, err, scale = compare(got, library_conv(x, w))
+    assert err / scale <= 2e-2
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("mode", ["halo", "rolling"])
+@pytest.mark.parametrize("C", [16, 64])
+def test_conv3x3_variants_match_their_plain_definitions(variant, mode, C):
+    x, w = conv_inputs(2, 21, C, torch.device("cuda"), seed=1)
+    got = conv3x3(x, w, mode=mode, variant=variant, tile_rows=4)
+    torch.cuda.synchronize()
+    _close(got, conv3x3_reference(x, w, variant, 4))
+
+
+@pytest.mark.parametrize("B,S,C", [(1, 320, 64), (1, 300, 64), (2, 400, 16),
+                                   (1, 160, 32)])
+def test_conv3x3_full_width_rows(B, S, C):
+    """The widest rows the probes use (the most shared memory) and a row of
+    more than 24 m tiles (a second pass of the warps)."""
+    x, w = conv_inputs(B, S, C, torch.device("cuda"), seed=2)
+    for mode in ("halo", "rolling"):
+        got = conv3x3(x, w, mode=mode)
+        torch.cuda.synchronize()
+        _close(got, conv3x3_reference(x, w))
+
+
+def test_conv3x3_rolling_strips_fit_on_the_card_at_once():
+    ctas = _ctas_on_card(320, 64, 0)
+    assert ctas >= torch.cuda.get_device_properties(0).multi_processor_count
+    strips = -(-320 // rolling_tile_rows(32, 320, 64, torch.device("cuda")))
+    assert 2 <= strips and 32 * strips <= ctas
+
+
+def test_conv3x3_refuses_what_it_cannot_take():
+    x, w = conv_inputs(1, 8, 64, torch.device("cuda"))
+    with pytest.raises(TypeError):
+        conv3x3(x.float(), w.float())
+    with pytest.raises(ValueError):
+        conv3x3(x[..., :48].contiguous(), w[:, :, :48, :48].contiguous())
+    with pytest.raises(ValueError):
+        conv3x3(x, w, variant="nohalo")
+    with pytest.raises(ValueError):
+        conv3x3(x, w, mode="sideways")
+    big, wb = conv_inputs(1, 400, 64, torch.device("cuda"))
+    with pytest.raises(ValueError):
+        conv3x3(big, wb)

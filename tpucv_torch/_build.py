@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``_build/lib<name>-<digest>.so`` and loaded with ``ctypes``; the digest
 covers the source and the flags, so an edited source rebuilds and a stale
-library is never loaded. Sources include no PyTorch header, so a build
+library is never loaded. Flags are common to every source, plus a
+source's own (``SOURCE_FLAGS``). Sources include no PyTorch header, so a build
 takes seconds. ``build`` starts one ``nvcc`` per source, all at once.
 """
 
@@ -22,10 +23,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no FMA contraction: the NMS IoU must round as XLA and PyTorch do
-    "--fmad=false",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
+SOURCE_FLAGS = {
+    # no FMA contraction: the NMS IoU must round as XLA and PyTorch do
+    "nms": ["--fmad=false"],
+}
 
 _lock = threading.Lock()      # one build at a time in this process
 
@@ -40,9 +43,16 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_flags(name: str) -> list:
+    """The flags ``csrc/<name>.cu`` is built with: the common ones and its
+    own."""
+    return [*NVCC_FLAGS, *SOURCE_FLAGS.get(name, [])]
+
+
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src + " ".join(nvcc_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -59,7 +69,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     logs = {name: "" for name in names}
