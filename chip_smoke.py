@@ -560,8 +560,8 @@ def phase_probe_conv(torch) -> dict:
     """The three conv probes' main paths, then conv3x3 against its plain
     definitions at the probes' shapes, timed against them, F.conv2d and
     the bound."""
-    from tpucv_torch.ops.conv3x3 import (MODES, conv3x3, conv3x3_reference,
-                                         smem_bytes)
+    from tpucv_torch.ops.conv3x3 import (MODES, _ctas_on_card, conv3x3,
+                                         conv3x3_reference, plan)
     from tpucv_torch.probes import probe_conv, probe_conv_parts, probe_conv_v2
     from tpucv_torch.probes.common import (compare, conv_bound, conv_inputs,
                                            library_conv, tile_rows_of, timed)
@@ -586,10 +586,15 @@ def phase_probe_conv(torch) -> dict:
                         f"off the plain version (max {err} at max {scale})")
         B, S, _, C = x.shape
         bound_ms, bound_by = conv_bound(B, S, C)
+        p = plan(S, C)
         row = {"tag": tag, "B": B, "S": S, "C": C, "mode": mode,
                "variant": variant, "tile_rows": tile, "mismatches": bad,
                "max_abs_err": err, "max_abs_plain": scale,
-               "smem_bytes": smem_bytes(S, C), "bound_ms": bound_ms,
+               "smem_bytes": p.smem_bytes, "ring_rows": p.ring_rows,
+               "col_tile": p.col_tile, "warps": p.warps,
+               "products": "wgmma" if p.wgmma else "mma.sync",
+               "ctas_per_sm": _ctas_on_card(C, dev.index or 0)[1],
+               "bound_ms": bound_ms,
                "bound_by": bound_by,
                **in_turns(lambda: conv3x3_reference(x, w, variant, tile),
                           lambda: conv3x3(x, w, mode=mode, variant=variant,

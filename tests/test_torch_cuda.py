@@ -19,11 +19,13 @@ import torch
 
 from tpucv_torch.ops.cuda_nms import (MAX_BOXES, cuda_nms, nms_keep,
                                       nms_keep_reference)
-from tpucv_torch.ops.conv3x3 import (VARIANTS, _ctas_on_card, conv3x3,
-                                     conv3x3_reference, rolling_tile_rows)
+from tpucv_torch.ops.conv3x3 import (COL_TILE, VARIANTS, _ctas_on_card,
+                                     conv3x3, conv3x3_reference, kernel_plan,
+                                     plan, rolling_tile_rows, strips_for)
 from tpucv_torch.ops.nms_cases import (chain_keep, class_offset_case,
                                        kernel_cases)
 from tpucv_torch.ops.stream import add_one, add_one_reference
+from tpucv_torch.probes import probe_conv
 from tpucv_torch.probes.common import compare, conv_inputs, library_conv
 
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -112,8 +114,12 @@ def _close(got, ref):
 
 @pytest.mark.parametrize("C", [16, 32, 64])
 @pytest.mark.parametrize("mode", ["halo", "rolling"])
-@pytest.mark.parametrize("B,S", [(2, 20), (1, 33), (3, 5)])
+@pytest.mark.parametrize("B,S", [(2, 20), (1, 33), (3, 5), (2, 12),
+                                 (1, 63), (1, 64), (1, 65), (1, 129),
+                                 (1, 300)])
 def test_conv3x3_matches_plain(C, mode, B, S):
+    """Rows narrower than a column tile, at its edges (63-65, 129) and over
+    three tiles (300), S < 16 included."""
     x, w = conv_inputs(B, S, C, torch.device("cuda"), seed=S)
     before = conv3x3.launches
     got = conv3x3(x, w, mode=mode, tile_rows=3 if mode == "halo" else None)
@@ -127,18 +133,49 @@ def test_conv3x3_matches_plain(C, mode, B, S):
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("mode", ["halo", "rolling"])
 @pytest.mark.parametrize("C", [16, 64])
-def test_conv3x3_variants_match_their_plain_definitions(variant, mode, C):
-    x, w = conv_inputs(2, 21, C, torch.device("cuda"), seed=1)
+@pytest.mark.parametrize("S", [21, 130])
+def test_conv3x3_variants_match_their_plain_definitions(variant, mode, C, S):
+    """A row tile of 4 that does not divide S, in one or two column
+    tiles."""
+    x, w = conv_inputs(2, S, C, torch.device("cuda"), seed=1)
     got = conv3x3(x, w, mode=mode, variant=variant, tile_rows=4)
     torch.cuda.synchronize()
     _close(got, conv3x3_reference(x, w, variant, 4))
 
 
+@pytest.mark.parametrize("mode", ["halo", "rolling"])
+@pytest.mark.parametrize("C", [16, 64])
+def test_conv3x3_more_jobs_than_ctas(mode, C):
+    """Each CTA walks several jobs: the ring carries on from one job's rows
+    to the next's."""
+    B, S, tile = 48, 70, 1 if mode == "halo" else 3
+    ctas, _ = _ctas_on_card(C, 0)
+    assert B * -(-S // tile) * -(-S // COL_TILE) > ctas
+    x, w = conv_inputs(B, S, C, torch.device("cuda"), seed=4)
+    got = conv3x3(x, w, mode=mode, tile_rows=tile)
+    torch.cuda.synchronize()
+    _close(got, conv3x3_reference(x, w))
+
+
+@pytest.mark.parametrize("shape", probe_conv.SHAPES, ids=lambda s: s[0])
+def test_conv3x3_plan_at_the_probe_shapes(shape):
+    """The Python plan is the kernel's, its ring holds at least 4 rows and
+    at least one CTA fits an SM."""
+    _, B, S, C, _ = shape
+    p = plan(S, C)
+    assert kernel_plan(C) == (p.col_tile, p.ring_rows, p.smem_bytes,
+                              p.warps, p.wgmma)
+    assert p.ring_rows >= 4
+    ctas, per_sm = _ctas_on_card(C, 0)
+    assert per_sm >= 1 and ctas == per_sm * \
+        torch.cuda.get_device_properties(0).multi_processor_count
+
+
 @pytest.mark.parametrize("B,S,C", [(1, 320, 64), (1, 300, 64), (2, 400, 16),
-                                   (1, 160, 32)])
+                                   (1, 160, 32), (1, 400, 64)])
 def test_conv3x3_full_width_rows(B, S, C):
-    """The widest rows the probes use (the most shared memory) and a row of
-    more than 24 m tiles (a second pass of the warps)."""
+    """The widest rows the probes use and wider (several column tiles, a
+    ragged last one)."""
     x, w = conv_inputs(B, S, C, torch.device("cuda"), seed=2)
     for mode in ("halo", "rolling"):
         got = conv3x3(x, w, mode=mode)
@@ -147,10 +184,12 @@ def test_conv3x3_full_width_rows(B, S, C):
 
 
 def test_conv3x3_rolling_strips_fit_on_the_card_at_once():
-    ctas = _ctas_on_card(320, 64, 0)
+    """The rolling mode's strips give every CTA on the card a job."""
+    ctas, _ = _ctas_on_card(64, 0)
     assert ctas >= torch.cuda.get_device_properties(0).multi_processor_count
     strips = -(-320 // rolling_tile_rows(32, 320, 64, torch.device("cuda")))
-    assert 2 <= strips and 32 * strips <= ctas
+    assert strips == strips_for(32, 320, plan(320, 64).col_tiles, ctas)
+    assert 2 <= strips and 32 * plan(320, 64).col_tiles * strips >= ctas
 
 
 def test_conv3x3_refuses_what_it_cannot_take():
@@ -163,6 +202,6 @@ def test_conv3x3_refuses_what_it_cannot_take():
         conv3x3(x, w, variant="nohalo")
     with pytest.raises(ValueError):
         conv3x3(x, w, mode="sideways")
-    big, wb = conv_inputs(1, 400, 64, torch.device("cuda"))
-    with pytest.raises(ValueError):
-        conv3x3(big, wb)
+    off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    with pytest.raises(ValueError):        # not 16-byte aligned
+        conv3x3(off.view(x.shape), w)

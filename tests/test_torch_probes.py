@@ -13,6 +13,7 @@ these plain versions in tests/test_torch_cuda.py, on the card.
 
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -23,9 +24,10 @@ from jax import lax
 
 from tpucv_torch import _build
 from tpucv_torch.ops.conv3x3 import (SMEM_MAX, VARIANTS, conv3x3,
-                                     conv3x3_reference, smem_bytes)
+                                     conv3x3_reference, plan, smem_bytes,
+                                     strips_for)
 from tpucv_torch.ops.stream import add_one, add_one_reference
-from tpucv_torch.probes import (common, probe_bw, probe_conv,
+from tpucv_torch.probes import (common, conv_ablations, probe_bw, probe_conv,
                                 probe_conv_parts, probe_conv_v2)
 
 torch.set_num_threads(1)
@@ -216,6 +218,53 @@ def test_conv_bounds_and_shared_memory_at_the_probe_shapes(shape, bound):
     assert smem_bytes(S, C) <= SMEM_MAX
 
 
+def _kernel_constant(name):
+    """A constexpr int of csrc/conv3x3.cu, read from the source."""
+    src = (REPO / "tpucv_torch" / "csrc" / "conv3x3.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+# every (S, C) a probe runs the kernel at: probe_conv's six shapes, the
+# parts/v2 shape, and the probes' small CPU shapes
+PLAN_SHAPES = sorted({(s[2], s[3]) for s in probe_conv.SHAPES} |
+                     {(s[2], s[3]) for s in probe_conv.SMALL_SHAPES} |
+                     {(probe_conv_parts.S, probe_conv_parts.C),
+                      probe_conv_parts.SMALL[1:]})
+
+
+@pytest.mark.parametrize("S,C", PLAN_SHAPES)
+def test_conv3x3_plan_fits_and_is_the_kernels(S, C):
+    p = plan(S, C)
+    assert p.col_tile == _kernel_constant("kColTile")
+    assert p.ring_rows == _kernel_constant(f"kRingC{C}") >= 4
+    assert p.col_tile % 64 == 0
+    assert (p.col_tiles - 1) * p.col_tile < S <= p.col_tiles * p.col_tile
+    # the weight (tap, ci/8, co, ci%8), the ring of padded rows and each
+    # warp's output staging: its m16 tiles of a row, at most 2 KB (8 warps
+    # of 2 tiles at C=64, 4 warps of 4 tiles below)
+    warps, tiles = (8, 2) if C == 64 else (4, 4)
+    assert (p.warps, p.wgmma) == (warps, C == 64)
+    assert p.smem_bytes == 9 * C * C * 2 + \
+        p.ring_rows * (p.col_tile + 2) * C * 2 + \
+        warps * min(tiles * 16 * C * 2, 2048)
+    assert p.smem_bytes == smem_bytes(S, C) <= SMEM_MAX
+
+
+@pytest.mark.parametrize("shape,strips", list(zip(probe_conv.SHAPES,
+                                                  [1, 1, 1, 2, 2, 4])))
+def test_rolling_strips_at_the_probe_shapes(shape, strips):
+    """One CTA an SM on 132 SMs: the strips whose waves of jobs take the
+    fewest row steps, halo rows counted."""
+    _, B, S, C, _ = shape
+    tiles = plan(S, C).col_tiles
+    assert strips_for(B, S, tiles, 132) == strips
+
+    def steps(n):
+        return -(-B * tiles * n // 132) * (-(-S // n) + 2)
+
+    assert all(steps(strips) <= steps(n) for n in range(1, S + 1))
+
+
 def test_probe_block_heights_become_row_tiles():
     tiles = [common.tile_rows_of(bhp, 64, 320)
              for _, bhp, _ in probe_conv_parts.CASES]
@@ -241,6 +290,19 @@ def test_probe_main_runs_small_on_cpu(probe, n_rows, capsys):
     assert all(r["mismatches"] == 0 for r in rows)
     assert all(np.isfinite(r["ms"]) for r in rows)
     assert "(cpu)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", list(conv_ablations.ABLATIONS))
+def test_conv_ablation_edits_apply_to_the_kernel_source(name):
+    """Each ablation finds the text it edits in csrc/conv3x3.cu, once or
+    more, and changes the source."""
+    src = (REPO / "tpucv_torch" / "csrc" / "conv3x3.cu").read_text()
+    assert conv_ablations._ablated_source(name) != src
+
+
+def test_conv_ablations_run_on_the_card_only():
+    with pytest.raises(SystemExit):
+        conv_ablations.main(["--device", "cpu"])
 
 
 def test_probe_refuses_the_card_when_there_is_none():
