@@ -9,29 +9,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. card     the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    builds every CUDA source of the port (one nvcc each, in
             parallel) and prints the build time and ptxas report.
-3. kernel   the NMS kernel against its plain PyTorch version on the cases
-            of tpucv_torch/ops/nms_cases.py: those of
-            tests/test_pallas_nms.py, the 60/120-deep chains and
-            class-offset sets at B=128, K=512/1024, IoU 0.5/0.7: keep
-            masks must be identical.
+3. kernel   the NMS kernels against their plain PyTorch versions on the
+            cases of tpucv_torch/ops/nms_cases.py: those of
+            tests/test_pallas_nms.py, the 60/120-deep chains, the 32-box
+            block edges and class-offset sets at B=128, K=512/1024, IoU
+            0.5/0.7: keep masks must be identical, the build's mask words
+            (overlap_words) bit-equal to overlap_words_reference, and the
+            walk alone over them must give the same keep mask.
 4. serve    YOLOv8n, nc=80, 640 input, bf16 autocast, random weights from
             torch.Generator seed 0 with the class biases zeroed and the
             class kernels scaled by CLS_GAIN. First the f32 forward on the
             card is held against the CPU's. Then a server (make_server,
             batch 8) answers 16 concurrent raw-RGB requests; launch counts
             are zeroed just before the requests and read just after. The
-            served images' NMS candidates, through the kernel and through
-            its plain version, must give identical keep masks, and the
-            plain route the server's detections (count and classes). A
-            batch of 8 is then timed stage by stage.
+            served images' NMS candidates, through the kernels and through
+            their plain versions, must give identical keep masks and mask
+            words, and the plain route the server's detections (count and
+            classes). A batch of 8 is then timed stage by stage.
 5. bench    the bench.py:main program: B=128 uint8 480x640, letterbox_static,
             forward, decode_boxes(pre_nms_topk=512), timed with CUDA
-            events; the kernel's and the plain version's times at the main
-            path's shapes and the least time the card could take.
+            events; the kernels' and the plain version's times at the main
+            path's shapes, the build and the walk timed apart, and the
+            least time the card could take.
 6. probe_bw python -m tpucv_torch.probes.probe_bw's main at full size
             (add_one's count zeroed just before, read just after); then
             add_one on the 1,638,400x128 bf16 array in its six views, bit
-            for bit against x + 1, timed against it and its bound.
+            for bit against x + 1, timed against it and its bound, with
+            the launch (threads, CTAs, index width) the library reports.
 7. probe_conv  the main of probe_conv, probe_conv_parts and probe_conv_v2
             at full size (conv3x3's count zeroed before each, read after);
             then conv3x3 at the six shapes in both modes, and the five
@@ -112,6 +116,7 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda")
         self.mismatches = 0
+        self.word_mismatches = 0
         self.max_abs_err = 0.0
         self.shapes = []          # kernel timings at the main path's shapes
 
@@ -119,14 +124,28 @@ class Smoke:
         self.torch.cuda.synchronize()
 
     def compare_keep(self, sb, ss, thr, tag):
-        """Kernel vs plain keep mask on the same CUDA tensors."""
-        from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
+        """Kernels vs plain keep mask on the same CUDA tensors; the build's
+        words bit for bit against their plain twin, and the walk alone over
+        them."""
+        from tpucv_torch.ops.cuda_nms import (nms_keep, nms_keep_reference,
+                                              overlap_words,
+                                              overlap_words_reference,
+                                              walk_words)
 
         torch = self.torch
         keep = nms_keep(sb, ss, thr)
         self.sync()
         ref = nms_keep_reference(sb, ss, thr)
+        words = overlap_words(sb, thr)
         self.sync()
+        bad_words = int((words != overlap_words_reference(sb, thr)).sum())
+        self.word_mismatches += bad_words
+        check(bad_words == 0, f"{tag}: the build's mask and its plain twin "
+                              f"differ in {bad_words} words")
+        walked = walk_words(words, ss)
+        self.sync()
+        check(torch.equal(walked, ref), f"{tag}: the walk alone differs from "
+                                        f"the plain keep mask")
         bad = int((keep != ref).sum())
         err = float((keep.float() - ref.float()).abs().max()) \
             if keep.numel() else 0.0
@@ -155,6 +174,7 @@ class Smoke:
             rows[name] = int(keep.sum())
         emit({"phase": "kernel", "cases": len(rows), "kept": rows,
               "mismatches": self.mismatches,
+              "word_mismatches": self.word_mismatches,
               "max_abs_err": self.max_abs_err})
 
     def serving_setup(self):
@@ -457,34 +477,40 @@ class Smoke:
                 else "operations", pairs)
 
     def time_kernel(self, sb, ss, thr, tag):
-        from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
+        from tpucv_torch.ops.cuda_nms import (nms_keep, nms_keep_reference,
+                                              library_plan, timing_launchers)
+        from tpucv_torch.probes.common import timed_queued
 
         torch = self.torch
 
         def timed(fn, iters):
-            fn()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end) / iters
+            return timed_queued(fn, iters, self.dev)
 
         keep = self.compare_keep(sb, ss, thr, tag)
-        # plain, kernel, kernel, plain: one card, in turns
+        build, walk = timing_launchers(sb, ss, thr)
+        build()
+        check(torch.equal(walk(), keep), f"{tag}: the split launches differ")
+        # in turns, on one card: plain, kernel, build, walk, and back
         p1 = timed(lambda: nms_keep_reference(sb, ss, thr), 3)
         k1 = timed(lambda: nms_keep(sb, ss, thr), 50)
+        b1 = timed(build, 50)
+        w1 = timed(walk, 50)
+        w2 = timed(walk, 50)
+        b2 = timed(build, 50)
         k2 = timed(lambda: nms_keep(sb, ss, thr), 50)
         p2 = timed(lambda: nms_keep_reference(sb, ss, thr), 3)
         bound_ms, bound_by, pairs = self.bound(sb, ss, keep, thr)
         B, K = ss.shape
+        plan = library_plan(B, K)        # what the built library launches
         row = {"tag": tag, "B": B, "K": K, "ms": min(k1, k2),
-               "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
+               "ms_runs": [k1, k2], "build_ms": min(b1, b2),
+               "build_ms_runs": [b1, b2], "walk_ms": min(w1, w2),
+               "walk_ms_runs": [w1, w2], "plain_ms": min(p1, p2),
                "plain_ms_runs": [p1, p2], "bound_ms": bound_ms,
                "bound_by": bound_by, "iou_pairs_needed": pairs,
+               "build_ctas": plan.build_grid[0] * plan.build_grid[1],
+               "walk_ctas": plan.walk_ctas,
+               "scratch_bytes": plan.scratch_bytes,
                "valid": int((ss > 0).sum()), "kept": int(keep.sum())}
         self.shapes.append(row)
         emit({"phase": "kernel_time", **row})
@@ -506,7 +532,8 @@ def in_turns(plain, kernel, dev, n_plain, n_kernel):
 def phase_probe_bw(torch) -> dict:
     """probe_bw's main path, then add_one bit for bit against x + 1 in the
     six views of the probe's array, timed against it and its bound."""
-    from tpucv_torch.ops.stream import add_one, add_one_reference
+    from tpucv_torch.ops.stream import (add_one, add_one_reference,
+                                        library_plan)
     from tpucv_torch.probes import probe_bw
     from tpucv_torch.probes.common import stream_bound_ms, timed
 
@@ -536,7 +563,10 @@ def phase_probe_bw(torch) -> dict:
         row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
         row["library_gb_per_s"] = nbytes / (row["library_ms"] * 1e-3) / 1e9
         rows.append(row)
-    emit({"phase": "probe_bw", "views": rows})
+    plan = library_plan(x.numel())       # what the built library launches
+    chosen = {"threads": plan.threads, "ctas": plan.grid,
+              "index_bits": plan.index_bits}
+    emit({"phase": "probe_bw", **chosen, "views": rows})
     main_row = rows[0]
     return {"name": "add_one", "route": "cuda",
             "source": "tpucv_torch/csrc/stream.cu",
@@ -546,7 +576,7 @@ def phase_probe_bw(torch) -> dict:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": main_row["library_ms"],
-            "gb_per_s": main_row["gb_per_s"], "shapes": rows}
+            "gb_per_s": main_row["gb_per_s"], **chosen, "shapes": rows}
 
 
 # the five timing-only decompositions: (the script's name, variant), halo
@@ -699,8 +729,10 @@ def main() -> int:
         "source": "tpucv_torch/csrc/nms.cu",
         "replaces": "tpucv/ops/pallas_nms.py:28 _nms_kernel",
         "launches": launches, "mismatches": smoke.mismatches,
+        "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "ms": main_row["ms"], "build_ms": main_row["build_ms"],
+        "walk_ms": main_row["walk_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None, "shapes": smoke.shapes}, bw, conv]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,9 @@ NVIDIA card and PyTorch alone:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Without CUDA every test skips. NMS keep masks must be identical: the
-kernel computes the IoU in f32 with the reference's association and no FMA
+Without CUDA every test skips. NMS keep masks must be identical, and the
+build kernel's mask words bit-equal to their plain twin: the kernel
+computes the IoU in f32 with the reference's association and no FMA
 contraction, so no pair near the threshold may flip. ``add_one`` must be
 bit-equal to ``x + 1``. The 3x3 conv may differ from its plain version by
 one bf16 ulp at the largest value (2^-7 * max |plain|): both sum in f32,
@@ -18,13 +19,17 @@ import pytest
 import torch
 
 from tpucv_torch.ops.cuda_nms import (MAX_BOXES, cuda_nms, nms_keep,
-                                      nms_keep_reference)
+                                      nms_keep_reference, overlap_words,
+                                      overlap_words_reference,
+                                      timing_launchers, walk_words,
+                                      walk_words_reference)
 from tpucv_torch.ops.conv3x3 import (COL_TILE, VARIANTS, _ctas_on_card,
                                      conv3x3, conv3x3_reference, kernel_plan,
                                      plan, rolling_tile_rows, strips_for)
-from tpucv_torch.ops.nms_cases import (chain_keep, class_offset_case,
-                                       kernel_cases)
-from tpucv_torch.ops.stream import add_one, add_one_reference
+from tpucv_torch.ops.nms_cases import (block_cases, chain_keep,
+                                       class_offset_case, kernel_cases)
+from tpucv_torch.ops.stream import (THREADS, add_one, add_one_reference,
+                                    launch, library_plan, stream_plan)
 from tpucv_torch.probes import probe_conv
 from tpucv_torch.probes.common import compare, conv_inputs, library_conv
 
@@ -38,6 +43,15 @@ def _tensors(seed, B, K, n_cls, n_invalid):
 
 
 CASES = kernel_cases()
+BLOCK_CASES = block_cases()
+
+
+def _sorted_cuda(name):
+    (boxes, scores), thr = CASES[name]
+    order = np.argsort(-scores, axis=-1, kind="stable")
+    sb = torch.from_numpy(np.take_along_axis(boxes, order[..., None], 1))
+    ss = torch.from_numpy(np.take_along_axis(scores, order, 1))
+    return sb.cuda(), ss.cuda(), thr
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -52,6 +66,61 @@ def test_kernel_matches_plain_version(name):
     torch.testing.assert_close(keep.cpu(), ref, rtol=0, atol=0)
     if name.startswith("chain"):
         assert torch.nonzero(keep[0]).flatten().tolist() == chain_keep(name)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_overlap_words_bit_equal_to_their_twin(name):
+    """The build kernel alone, every word (zero left of the diagonal), and
+    the walk kernel alone over the twin's words."""
+    sb, ss, thr = _sorted_cuda(name)
+    before = (overlap_words.launches, walk_words.launches)
+    words = overlap_words(sb, thr)
+    torch.cuda.synchronize()
+    ref = overlap_words_reference(sb, thr)
+    assert torch.equal(words, ref)
+    keep = walk_words(ref, ss)
+    torch.cuda.synchronize()
+    assert (overlap_words.launches, walk_words.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(keep, nms_keep_reference(sb, ss, thr))
+
+
+@pytest.mark.parametrize("name", list(BLOCK_CASES))
+def test_kernels_in_the_given_order(name):
+    """Unsorted: invalid boxes inside the blocks and across a chain."""
+    (boxes, scores), thr = BLOCK_CASES[name]
+    boxes, scores = torch.from_numpy(boxes), torch.from_numpy(scores)
+    keep = nms_keep(boxes.cuda(), scores.cuda(), thr)
+    ref = walk_words_reference(overlap_words_reference(boxes, thr), scores)
+    assert torch.equal(keep.cpu(), ref)
+    assert torch.equal(ref, nms_keep_reference(boxes, scores, thr))
+
+
+@pytest.mark.parametrize("B,K", [(8, 1024), (128, 512), (128, 1024), (3, 77),
+                                 (1, 1), (70_000, 2)])
+def test_nms_plan_is_the_kernels(B, K):
+    from tpucv_torch.ops.cuda_nms import library_plan, nms_plan
+    assert library_plan(B, K) == nms_plan(B, K)
+
+
+def test_kernel_takes_more_images_than_a_grid_row():
+    """The images are the grids' x: 70,000 images launch, and pair 0 of
+    each suppresses box 1."""
+    B = 70_000
+    boxes = torch.tensor([[0.0, 0.0, 10.0, 10.0], [1.0, 1.0, 10.0, 10.0]]) \
+        .expand(B, 2, 4).contiguous().cuda()
+    scores = torch.tensor([0.9, 0.8]).expand(B, 2).contiguous().cuda()
+    keep = nms_keep(boxes, scores, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, nms_keep_reference(boxes, scores, 0.5))
+    assert keep[:, 0].all() and not keep[:, 1].any()
+
+
+def test_timing_launchers_are_the_two_launches():
+    sb, ss, thr = _sorted_cuda("offsets_B128_K1024_iou0.7")
+    build, walk = timing_launchers(sb, ss, thr)
+    build()
+    assert torch.equal(walk(), nms_keep(sb, ss, thr))
 
 
 def test_cuda_nms_matches_cpu_path():
@@ -71,6 +140,14 @@ def test_kernel_refuses_what_it_cannot_take():
         nms_keep(boxes.cuda(), scores, 0.5)
     with pytest.raises(TypeError):
         nms_keep(boxes.cuda().half(), scores.cuda().half(), 0.5)
+    with pytest.raises(ValueError):
+        overlap_words(boxes.cuda(), 0.5)
+    words = torch.zeros(2, 64, 2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):        # 64 boxes want 2 words, not 3
+        walk_words(torch.zeros(2, 64, 3, dtype=torch.int32, device="cuda"),
+                   scores[:, :64].contiguous().cuda())
+    with pytest.raises(ValueError):        # on two devices
+        walk_words(words, scores[:, :64].contiguous())
 
 
 # -- add_one --------------------------------------------------------------
@@ -97,11 +174,35 @@ def test_add_one_bitwise(shape):
                        add_one_reference(x).view(torch.int16))
 
 
+def test_add_one_every_tail_length():
+    """n = one chunk + t for every t in 1 .. chunk - 1: each split of the
+    last CTA's tail into whole vectors and fewer than 8 elements."""
+    chunk = 8 * THREADS
+    x = _bf16_ties(2 * chunk, 9).cuda()
+    ref = add_one_reference(x).view(torch.int16)
+    before = add_one.launches
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for t in range(1, chunk):
+        y = add_one(x[:chunk + t])
+        bad += (y.view(torch.int16) != ref[:chunk + t]).sum()
+    torch.cuda.synchronize()
+    assert add_one.launches == before + chunk - 1
+    assert int(bad) == 0
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 8 * THREADS + 3,
+                               1_638_400 * 128, 8 * (2 ** 32 - THREADS)])
+def test_stream_plan_is_the_kernels(n):
+    assert library_plan(n) == stream_plan(n)
+
+
 def test_add_one_refuses_what_it_cannot_take():
     with pytest.raises(TypeError):
         add_one(torch.ones(8, device="cuda"))
     with pytest.raises(ValueError):
         add_one(torch.ones(8, 8, device="cuda", dtype=torch.bfloat16).t())
+    with pytest.raises(ValueError):        # the kernel alone: cuda only
+        launch(torch.ones(8, dtype=torch.bfloat16))
 
 
 # -- conv3x3 ---------------------------------------------------------------

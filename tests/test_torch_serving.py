@@ -2,7 +2,9 @@
 tpucv's, and the port's HTTP server.
 
 Both packages are built through ``export_from_registry("yolo8_det")`` with
-``mixed_precision=False`` and ``input_size=160``. Weights are tpucv's init
+``mixed_precision=False`` and ``input_size=160``; the last test builds both
+with ``mixed_precision=True``, the served default, and holds the port's
+bf16 path to tpucv's own bf16 rounding. Weights are tpucv's init
 with the class-branch biases zeroed (the init's -11.5..-8.8 would leave no
 candidate above the 0.25 gate) and its last kernels scaled by
 ``CLS_GAIN``, carried across with ``from_flax_variables``. Images of several sizes go through
@@ -15,6 +17,7 @@ import json
 import threading
 import urllib.request
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -47,12 +50,25 @@ def _images():
     return imgs
 
 
-@pytest.fixture(scope="module")
-def both():
+def _tpucv_algo(mixed_precision):
     cfg, algo_cls, _ = tpucv_export("yolo8_det")
-    cfg.train.mixed_precision = False
+    cfg.train.mixed_precision = mixed_precision
     cfg.dataset.input_size = 160
-    algo = algo_cls(cfg)
+    return algo_cls(cfg)
+
+
+def _port(variables, mixed_precision):
+    pcfg, palgo_cls, trainer = export_from_registry("yolo8_det")
+    assert trainer is None
+    pcfg.train.mixed_precision = mixed_precision
+    pcfg.dataset.input_size = 160
+    palgo = palgo_cls(pcfg, device="cpu")
+    model = palgo.init_variables()
+    model.load_state_dict(from_flax_variables(variables), strict=True)
+    return palgo, model
+
+
+def _variables(algo):
     variables = algo.init_variables()
     params = {k: dict(v) for k, v in variables["params"].items()}
     for lv in range(3):
@@ -62,15 +78,14 @@ def both():
         # ulp of 0.5 and tie; scaled up they spread over (0.25, 0.75)
         cls_head["kernel"] = np.asarray(cls_head["kernel"]) * CLS_GAIN
         params["detect"][f"cv3_{lv}_2"] = cls_head
-    variables = {"params": params, "batch_stats": variables["batch_stats"]}
+    return {"params": params, "batch_stats": variables["batch_stats"]}
 
-    pcfg, palgo_cls, trainer = export_from_registry("yolo8_det")
-    assert trainer is None
-    pcfg.train.mixed_precision = False
-    pcfg.dataset.input_size = 160
-    palgo = palgo_cls(pcfg, device="cpu")
-    model = palgo.init_variables()
-    model.load_state_dict(from_flax_variables(variables), strict=True)
+
+@pytest.fixture(scope="module")
+def both():
+    algo = _tpucv_algo(False)
+    variables = _variables(algo)
+    palgo, model = _port(variables, False)
     index = [(img,) for img in _images()]
     ref = list(algo._batched_detections(variables, index, BATCH, 0.25))
     return palgo, model, index, ref
@@ -142,6 +157,89 @@ def test_http_raw_rgb_matches_tpucv(both):
         server.server_close()
         t.join(timeout=10)
     assert not t.is_alive()
+
+
+# bf16 tolerances, from the same weights and images (tests/ at input 160,
+# the CPU): the port's raw maps differed from tpucv's by 0.74-0.90x tpucv's
+# own bf16-against-f32 error at each level, detection counts by at most 4
+# of 197, and 96.8-98.4% of detections matched by class at IoU >= 0.5
+BF16_MAP_MULTIPLE = 2.0      # port-vs-tpucv bf16, over tpucv's bf16-vs-f32
+BF16_COUNT_FRACTION = 0.03   # |count difference| over tpucv's count
+BF16_MATCHED_FRACTION = 0.9  # matched detections over the larger count
+BF16_MATCH_IOU = 0.5
+
+
+def _iou(a, b):
+    ix = np.clip(np.minimum(a[:, None, 2], b[None, :, 2]) -
+                 np.maximum(a[:, None, 0], b[None, :, 0]), 0, None)
+    iy = np.clip(np.minimum(a[:, None, 3], b[None, :, 3]) -
+                 np.maximum(a[:, None, 1], b[None, :, 1]), 0, None)
+    inter = ix * iy
+    area = lambda x: (x[:, 2] - x[:, 0]) * (x[:, 3] - x[:, 1])  # noqa: E731
+    return inter / (area(a)[:, None] + area(b)[None] - inter)
+
+
+def _matched(ref, out):
+    """Greedy one-to-one matches, tpucv's detections by score: the port's
+    best unmatched detection of the same class at IoU >= BF16_MATCH_IOU."""
+    _, rb, rs, rc = ref
+    _, ob, _, oc = out
+    sim = _iou(np.asarray(rb), np.asarray(ob)) * \
+        (np.asarray(rc)[:, None] == np.asarray(oc)[None])
+    used, n = set(), 0
+    for i in np.argsort(-np.asarray(rs), kind="stable"):
+        for j in np.argsort(-sim[i], kind="stable"):
+            if sim[i, j] < BF16_MATCH_IOU:
+                break
+            if j not in used:
+                used.add(j)
+                n += 1
+                break
+    return n
+
+
+def test_bf16_served_path_within_tpucvs_own_bf16_error():
+    """``mixed_precision = True`` on both sides: tpucv computes in bf16,
+    the port under bf16 autocast, so they round at other places. Each
+    level's raw maps stay within BF16_MAP_MULTIPLE x tpucv's own
+    bf16-against-f32 error on the same letterboxed images, and the served
+    detections agree in count and, matched by class and IoU, in place."""
+    from tpucv.ops.preprocess import normalize_images as tpucv_normalize
+
+    a32, a16 = _tpucv_algo(False), _tpucv_algo(True)
+    variables = _variables(a32)
+    palgo, model = _port(variables, True)
+    index = [(img,) for img in _images()]
+
+    canvases, hw, _, _ = palgo._fill_canvases(index, range(BATCH), BATCH,
+                                              palgo.raw_canvas)
+    geom, hscale = host_letterbox_geom(hw, palgo.input_size)
+    with torch.inference_mode():
+        lb, _, _ = letterbox_images(
+            torch.from_numpy(canvases), torch.from_numpy(hw),
+            palgo.input_size, geom=torch.from_numpy(geom),
+            scale=torch.from_numpy(hscale))
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            port = model(normalize_images(lb, torch.bfloat16))
+    u8 = jnp.asarray(lb.numpy())
+    f32 = a32.build_model().apply(variables, tpucv_normalize(u8, jnp.float32))
+    b16 = a16.build_model().apply(variables,
+                                  tpucv_normalize(u8, jnp.bfloat16))
+    for lv, (p, f, b) in enumerate(zip(port, f32, b16)):
+        f, b = np.asarray(f, np.float32), np.asarray(b, np.float32)
+        own = np.abs(b - f).max()
+        diff = np.abs(p.float().numpy() - b).max()
+        assert 0 < own and diff <= BF16_MAP_MULTIPLE * own, (lv, diff, own)
+
+    ref = list(a16._batched_detections(variables, index, BATCH, 0.25))
+    out = list(palgo._batched_detections(model, index, BATCH, 0.25))
+    assert [o[0] for o in out] == [r[0] for r in ref]
+    for r, o in zip(ref, out):
+        n_ref, n_out = len(r[3]), len(o[3])
+        assert n_ref > 0
+        assert abs(n_out - n_ref) <= BF16_COUNT_FRACTION * n_ref, \
+            (n_ref, n_out)
+        assert _matched(r, o) >= BF16_MATCHED_FRACTION * max(n_ref, n_out)
 
 
 def test_cuda_default_refuses_without_card():

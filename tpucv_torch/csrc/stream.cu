@@ -13,10 +13,14 @@
 //
 // What bounds it on an H100: bytes only, 4 B an element (2 read, 2
 // written) over 3.35 TB/s; the 1 add an element is nothing beside it. The
-// design keeps enough bytes in flight: a grid-stride loop over 16-byte
-// vectors (8 bf16 a thread a step, neighbouring threads on neighbouring
-// addresses), with as many CTAs as fill every SM. A tail of fewer than 8
-// elements is done one element a thread.
+// design: one 16-byte vector a thread (neighbouring threads on
+// neighbouring addresses), CTAs of 1,024 threads, one CTA a chunk of 1,024
+// vectors (no grid-stride loop), and the streaming ld/st.global.cs hints,
+// since no byte is read twice. Indices are 32-bit when the tensor allows.
+// The tail of fewer than 8 elements is the last CTA's. More vectors a
+// thread, 256-thread CTAs, ld.global.nc loads and a persistent grid all
+// measured no faster (probes/stream_ablations.py builds each as an edit of
+// this file).
 
 #include <cstddef>
 #include <cstdint>
@@ -25,8 +29,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCtasPerSm = 8;
+constexpr int kThreads = 1024;
 
 __device__ __forceinline__ uint32_t add_one_pair(uint32_t v) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
@@ -35,24 +38,45 @@ __device__ __forceinline__ uint32_t add_one_pair(uint32_t v) {
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
+__device__ __forceinline__ uint4 add_one_vec(uint4 v) {
+  v.x = add_one_pair(v.x);
+  v.y = add_one_pair(v.y);
+  v.z = add_one_pair(v.z);
+  v.w = add_one_pair(v.w);
+  return v;
+}
+
+template <typename Index>
 __global__ void __launch_bounds__(kThreads)
 add_one_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
-               size_t n_vec, const __nv_bfloat16* __restrict__ in_tail,
+               Index n_vec, const __nv_bfloat16* __restrict__ in_tail,
                __nv_bfloat16* __restrict__ out_tail, int n_tail) {
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride) {
-    uint4 v = in[i];
-    v.x = add_one_pair(v.x);
-    v.y = add_one_pair(v.y);
-    v.z = add_one_pair(v.z);
-    v.w = add_one_pair(v.w);
-    out[i] = v;
-  }
-  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < n_tail) {
+  const Index i = static_cast<Index>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n_vec) __stcs(out + i, add_one_vec(__ldcs(in + i)));
+  if (blockIdx.x == gridDim.x - 1 && static_cast<int>(threadIdx.x) < n_tail) {
     const float f = __bfloat162float(in_tail[threadIdx.x]);
     out_tail[threadIdx.x] = __float2bfloat16_rn(f + 1.0f);
   }
+}
+
+// The launch for n elements: {threads a CTA, CTAs, index bits}.
+void plan(long long n, long long out[3]) {
+  const long long n_vec = n / 8;
+  const long long grid = (n_vec + kThreads - 1) / kThreads;
+  out[0] = kThreads;
+  out[1] = grid < 1 ? 1 : grid;
+  // 32-bit while every index the grid forms fits
+  out[2] = n_vec + kThreads <= 0xffffffffll ? 32 : 64;
+}
+
+template <typename Index>
+void launch(const void* x, void* y, size_t n_vec, int n_tail,
+            long long grid, cudaStream_t stream) {
+  add_one_kernel<Index><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(y),
+      static_cast<Index>(n_vec),
+      static_cast<const __nv_bfloat16*>(x) + n_vec * 8,
+      static_cast<__nv_bfloat16*>(y) + n_vec * 8, n_tail);
 }
 
 }  // namespace
@@ -63,26 +87,25 @@ const char* tpucv_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The launch tpucv_add_one makes for n elements, into out:
+// {threads a CTA, CTAs, index bits} (ops/stream.py:stream_plan).
+void tpucv_add_one_plan(long long n, long long* out) { plan(n, out); }
+
 // x and y: n contiguous bf16 on the device, 16-byte aligned. Launches on
 // `stream`, allocates nothing, and returns the cudaGetLastError() that
 // follows the launch (0 on success).
 int tpucv_add_one(const void* x, void* y, long long n, void* stream) {
   if (n <= 0) return 0;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  long long p[3];
+  plan(n, p);
+  if (p[1] > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
   const size_t n_vec = static_cast<size_t>(n) / 8;
   const int n_tail = static_cast<int>(n % 8);
-  const size_t want = (n_vec + kThreads - 1) / kThreads;
-  const size_t cap = static_cast<size_t>(sms) * kCtasPerSm;
-  const int grid = static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
-  add_one_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(y), n_vec,
-      xb + n_vec * 8, yb + n_vec * 8, n_tail);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p[2] == 32)
+    launch<uint32_t>(x, y, n_vec, n_tail, p[1], s);
+  else
+    launch<uint64_t>(x, y, n_vec, n_tail, p[1], s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,9 @@ NMS engines and the CUDA kernel against their references.
 
 The random, chain and presorted cases are those of
 ``tests/test_pallas_nms.py``; the edge cases sit on the decision edges of
-the IoU test; the class-offset cases have decode's shape (boxes in a 640
-image offset by class * 7680, scores descending with an invalid tail).
+the IoU test; the block cases on the edges of the kernels' 32-box blocks;
+the class-offset cases have decode's shape (boxes in a 640 image offset by
+class * 7680, scores descending with an invalid tail).
 Every case is ``name -> ((boxes (B, N, 4) f32 xyxy, scores (B, N) f32),
 iou_threshold)``.
 """
@@ -73,6 +74,58 @@ def edges(tiny):
             np.asarray(scores, np.float32)[None])
 
 
+def dense_case(seed, B, K):
+    """K boxes crowded into a 100 px square, a tenth of them invalid: many
+    overlaps, suppression chains across the 32-box blocks."""
+    rng = np.random.default_rng(seed)
+    cxy = rng.uniform(0, 100, (B, K, 2))
+    wh = rng.uniform(15, 45, (B, K, 2))
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1)
+    scores = rng.uniform(0.01, 1.0, (B, K))
+    scores[rng.random((B, K)) < 0.1] = 0.0
+    return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+def block_chain(start, n_chain, N, invalid=()):
+    """``start`` isolated boxes, then a 2 px chain of ``n_chain`` (each
+    overlapping the next at IoU 2/3), then isolated boxes up to N, scores
+    descending; the boxes in ``invalid`` get score 0."""
+    boxes = np.zeros((1, N, 4), np.float32)
+    for i in range(N):
+        k = i - start
+        x = k * 2.0 if 0 <= k < n_chain else 1000.0 + 20.0 * i
+        boxes[0, i] = [x, 0, x + 10.0, 10.0]
+    scores = (1.0 - np.arange(N, dtype=np.float32) / (2 * N))[None]
+    scores[0, list(invalid)] = 0.0
+    return boxes, scores
+
+
+def suppressed_block():
+    """96 boxes: box 0 and the whole second block (32-63) are one square
+    (the block's copies nudged by < 1 px), the rest isolated: greedy keeps
+    box 0 and removes every box of block 1."""
+    boxes, scores = block_chain(0, 0, 96)
+    boxes[0, 0] = [0, 0, 100, 100]
+    for i in range(32, 64):
+        d = (i - 32) * 0.02
+        boxes[0, i] = [d, d, 100 + d, 100 + d]
+    return boxes, scores
+
+
+def block_cases():
+    """The walk's 32-box block edges: dense sets of K boxes at and around
+    the block sizes, a chain that crosses two block boundaries, invalid
+    boxes inside a chain's blocks, and a block that is wholly suppressed."""
+    return {
+        **{f"dense_K{K}": (dense_case(K, 2, K), 0.3)
+           for K in (1, 31, 32, 33, 63, 64, 65, 77)},
+        "cross_chain": (block_chain(20, 48, 96), 0.5),
+        "invalid_in_chain": (block_chain(0, 64, 64, invalid=(5, 31, 32, 40)),
+                          0.5),
+        "suppressed_block": (suppressed_block(), 0.5),
+    }
+
+
 def greedy_cases():
     """The cases of ``tests/test_pallas_nms.py`` and the decision edges."""
     b10, b11 = random_case(10), random_case(11)
@@ -89,10 +142,12 @@ def greedy_cases():
 
 
 def kernel_cases():
-    """``greedy_cases`` plus the kernel's own shapes: an odd K, and
-    class-offset sets at the main path's B=128 with K=512 and K=1024."""
+    """``greedy_cases`` and ``block_cases`` plus the kernel's own shapes: an
+    odd K, and class-offset sets at the main path's B=128 with K=512 and
+    K=1024."""
     return {
         **greedy_cases(),
+        **block_cases(),
         "odd_K": (class_offset_case(9, 3, 77, n_cls=2, n_invalid=5), 0.45),
         **{f"offsets_B128_K{K}_iou{t}":
            (class_offset_case(K + int(t * 10), 128, K), t)

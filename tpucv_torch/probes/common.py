@@ -10,7 +10,9 @@ from __future__ import annotations
 import argparse
 import subprocess
 import time
-from typing import Callable, List, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +66,62 @@ def timed(fn: Callable[[], object], n: int, dev: torch.device) -> float:
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / n
+
+
+def timed_queued(fn: Callable[[], object], n: int,
+                 dev: torch.device) -> float:
+    """``timed`` for launches shorter than the host's cost of making them:
+    the device first sleeps ~10 ms, so the host has queued all ``n`` calls
+    before the first runs and the events time the device alone."""
+    if dev.type != "cuda":
+        return timed(fn, n, dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    torch.cuda._sleep(20_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / n
+
+
+def ablated_source(source: str, edits: Sequence[Tuple[str, str]]) -> str:
+    """csrc/<source>.cu with each (text, replacement) of ``edits``
+    applied; a text that is not in the source raises."""
+    from tpucv_torch import _build
+
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"{old!r} is not in csrc/{source}.cu")
+        src = src.replace(old, new)
+    return src
+
+
+def build_ablations(source: str, ablations: Dict[str, Sequence[Tuple[str, str]]],
+                    out_dir: Path) -> Dict[str, Path]:
+    """Each ablation of csrc/<source>.cu (name -> its edits) built with the
+    source's own flags into ``out_dir``, one nvcc each, all at once; name
+    -> the library's path."""
+    from tpucv_torch import _build
+
+    def one(name):
+        src = out_dir / f"{source}_{name}.cu"
+        src.write_text(ablated_source(source, ablations[name]))
+        lib = out_dir / f"lib{source}_{name}.so"
+        done = subprocess.run([_build._nvcc(), *_build.nvcc_flags(source),
+                               "-o", str(lib), str(src)],
+                              capture_output=True, text=True)
+        if done.returncode:
+            raise RuntimeError(f"ablation {name} does not build:\n"
+                               f"{done.stdout}{done.stderr}")
+        return name, lib
+
+    with ThreadPoolExecutor(len(ablations)) as pool:
+        return dict(pool.map(one, ablations))
 
 
 def fence_fit(fn: Callable[[], object], dev: torch.device,

@@ -22,18 +22,16 @@ anything. Shapes: the probe shape 64ch 320^2 B32 (full and gemm1, halo
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
 
-from tpucv_torch import _build
 from tpucv_torch.ops.conv3x3 import VARIANTS, conv3x3, rolling_tile_rows
-from tpucv_torch.probes.common import (card, conv_bound, conv_inputs, parser,
+from tpucv_torch.probes.common import (ablated_source, build_ablations, card,
+                                       conv_bound, conv_inputs, parser,
                                        resolve_device, timed)
 
 # name -> [(text in csrc/conv3x3.cu, its replacement), ...]
@@ -64,32 +62,12 @@ CASES = [
 
 
 def _ablated_source(name: str) -> str:
-    src = (_build.CSRC / "conv3x3.cu").read_text()
-    for old, new in ABLATIONS[name]:
-        if old not in src:
-            raise RuntimeError(f"ablation {name}: {old!r} is not in the "
-                               f"source")
-        src = src.replace(old, new)
-    return src
+    return ablated_source("conv3x3", ABLATIONS[name])
 
 
 def _build_ablations(out_dir: Path) -> Dict[str, ctypes.CDLL]:
-    def one(name):
-        src = out_dir / f"conv3x3_{name}.cu"
-        src.write_text(_ablated_source(name))
-        lib = out_dir / f"libconv3x3_{name}.so"
-        done = subprocess.run([_build._nvcc(), *_build.nvcc_flags("conv3x3"),
-                               "-o", str(lib), str(src)],
-                              capture_output=True, text=True)
-        if done.returncode:
-            raise RuntimeError(f"ablation {name} does not build:\n"
-                               f"{done.stdout}{done.stderr}")
-        return name, lib
-
-    with ThreadPoolExecutor(len(ABLATIONS)) as pool:
-        built = list(pool.map(one, ABLATIONS))
     libs = {}
-    for name, path in built:
+    for name, path in build_ablations("conv3x3", ABLATIONS, out_dir).items():
         lib = ctypes.CDLL(str(path))
         lib.tpucv_conv3x3.argtypes = [ctypes.c_void_p] * 3 + \
             [ctypes.c_int] * 5 + [ctypes.c_void_p]
