@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpucv_torch's paths once on one NVIDIA GPU: the yolo8_det serving
-path and the four measurement probes.
+path, the bench entry point's inference program, the four measurement
+probes and the YOLOv8 training step.
 
     python3 chip_smoke.py
 
@@ -26,11 +27,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
             their plain versions, must give identical keep masks and mask
             words, and the plain route the server's detections (count and
             classes). A batch of 8 is then timed stage by stage.
-5. bench    the bench.py:main program: B=128 uint8 480x640, letterbox_static,
-            forward, decode_boxes(pre_nms_topk=512), timed with CUDA
-            events; the kernels' and the plain version's times at the main
-            path's shapes, the build and the walk timed apart, and the
-            least time the card could take.
+5. bench    the bench.py:main program as tpucv_torch.bench runs it: B=128
+            uint8 480x640, letterbox_static, forward, decode_boxes
+            (pre_nms_topk=512), timed with CUDA events, device-resident and
+            with the H2D copy; the kernels' and the plain version's times
+            at the main path's shapes, the build and the walk timed apart,
+            and the least time the card could take.
 6. probe_bw python -m tpucv_torch.probes.probe_bw's main at full size
             (add_one's count zeroed just before, read just after); then
             add_one on the 1,638,400x128 bf16 array in its six views, bit
@@ -43,6 +45,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
             definition (no element further than 2^-7 of its largest
             value) and the full conv against F.conv2d (relerr <= 2e-2),
             timed against the plain version, F.conv2d and the bound.
+8. train_parity  the port's train step on the card against the same step
+            on the CPU (YOLOv8n, B=2, 128², M=4, f32, TF32 off, a GT over
+            the lowest-index anchors): TAL fg mask and GT rows bit-equal,
+            loss and components within 1e-4 relative, BatchNorm statistics
+            and parameters after one step within the CPU tests' bounds.
+9. train    the train step at full width as tpucv_torch.bench runs it
+            (YOLOv8n, B=128, 640², M=32, bf16 autocast, channels_last,
+            Adam 1e-3, EMA 0.9999): 3 warm-up and 10 timed steps (CUDA
+            events), img/s, the last loss and num_fg (finite), peak
+            memory, one step split into forward / loss / backward /
+            optimizer + EMA (median of 5, a sync after each stage), and
+            the compute bound (3 x the forward's convolution FLOPs over
+            the dense bf16 rate) as a share of the step (mfu).
 
 The line before the last holds {"kernels": [...]} (nms_keep, add_one,
 conv3x3); the last line is
@@ -69,7 +84,6 @@ IOU_OPS = 14       # min, max, sub, clamp per axis (8), mul, add, sub, add,
 AREA_OPS = 5       # div, compare; area: two sub, two clamp, one mul
 CLS_GAIN = 3000.0  # the init's class logits are ~1e-4: scores would all
                    # round to 0.5 in bf16; scaled up they spread
-BENCH_BATCH = 128  # bench.py:main's batch
 
 
 def emit(obj) -> None:
@@ -394,55 +408,133 @@ class Smoke:
               "runs_ms": stages})
 
     def phase_bench(self, model):
-        from tpucv_torch.decode.yolov8 import decode_boxes, topk_candidates
+        """The bench entry point's inference program
+        (``tpucv_torch.bench.bench_inference``) on the served model; then
+        the forward of its first batch again, for the NMS's candidate
+        sets at K=512 and 1024."""
+        from tpucv_torch import bench
+        from tpucv_torch.decode.yolov8 import topk_candidates
         from tpucv_torch.ops.cuda_nms import nms_keep
-        from tpucv_torch.ops.preprocess import (letterbox_static,
-                                                normalize_images)
 
         torch = self.torch
-        B, H, W, S = BENCH_BATCH, 480, 640, 640
-        rng = np.random.default_rng(0)
-        raw_u8 = torch.from_numpy(
-            rng.integers(0, 255, (B, H, W, 3), dtype=np.uint8)).to(self.dev)
-        kw = dict(conf_threshold=0.25, iou_threshold=0.7, max_det=300)
-
-        def forward():
-            lb, _, _ = letterbox_static(raw_u8, S)
-            x = normalize_images(lb, torch.bfloat16)
-            with torch.autocast("cuda", dtype=torch.bfloat16):
-                return model(x)
-
-        def program():
-            return decode_boxes(forward(), pre_nms_topk=512, **kw)
-
+        shapes = bench.FULL
+        nms_keep.launches = 0
+        res = bench.bench_inference(model, self.dev, shapes)
+        nms_launches = nms_keep.launches
+        calls = 3 + (1 + shapes.infer_iters) + (1 + shapes.h2d_iters)
+        check(nms_launches == calls, "bench skipped NMS")
+        out = res.pop("outputs")
+        check(all(torch.isfinite(o.float()).all() for o in out),
+              "non-finite bench output")
+        fwd, _ = bench.inference_program(model, shapes.size, amp=True)
         with torch.inference_mode():
-            for _ in range(3):
-                out = program()
-            torch.cuda.synchronize()
-            before = nms_keep.launches
-            iters = 10
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                out = program()
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end) / iters
-            check(nms_keep.launches - before == iters, "bench skipped NMS")
-            check(all(torch.isfinite(o.float()).all() for o in out),
-                  "non-finite bench output")
-            raw = forward()
+            raw = fwd(bench.raw_batches(shapes, 1)[0].to(self.dev))
             c512 = topk_candidates(raw, pre_nms_topk=512,
                                    conf_threshold=0.25)
             c1024 = topk_candidates(raw, pre_nms_topk=1024,
                                     conf_threshold=0.25)
-        emit({"phase": "bench", "batch": B, "ms_per_batch": ms,
-              "img_per_s": B * 1000.0 / ms,
+        emit({"phase": "bench", "batch": shapes.batch,
+              "iters": shapes.infer_iters, "nms_launches": nms_launches,
+              **res,
               "detections_mean": float(out[3].sum(1).float().mean())})
         offs = [((c[0] + c[2][..., None].float() * 7680.0).contiguous(),
                  c[1]) for c in (c512, c1024)]
-        return offs, kw["iou_threshold"]
+        return offs, 0.7
+
+    def phase_train_parity(self):
+        """The port's train step on the card against the same step on the
+        CPU: YOLOv8n (nc=80) from torch.Generator seed 0, B=2, 128², M=4,
+        f32 with TF32 off. GT row 0 is a strip 5 px tall along the top:
+        every anchor inside it has CIoU <= 0 with the init's large
+        predictions, so its top-10 are zero-metric ties, and lowest-index
+        order selects anchors 0-9 (``torch.topk``'s order would not). The
+        TAL assignment (fg mask and GT rows) of the first forward must be
+        bit-equal, the step's loss and components within 1e-4 relative,
+        and after it the BatchNorm statistics within 1e-5 and the
+        parameters as the CPU tests bound them: within 2.1 * lr, all but
+        0.1% of elements within 1e-5."""
+        import copy
+
+        from tpucv_torch import bench
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.losses.yolov8 import yolov8_loss
+        from tpucv_torch.train.state import (TrainState, forward,
+                                             make_train_step)
+
+        torch = self.torch
+        cpu = torch.device("cpu")
+        B, S, M, lr = 2, 128, 4, 1e-3
+        model = bench.yolo8n(cpu)
+        batch = bench.synthetic_batch(B, S, M, cpu, S * 0.9, torch.float32,
+                                      seed=1)
+        xy = batch["gt_bboxes"][..., :2]
+        batch["gt_bboxes"][..., 2:] = xy + (batch["gt_bboxes"][..., 2:] -
+                                            xy).abs() + 4.0
+        batch["gt_bboxes"][:, 0] = torch.tensor([0.0, 0.0, float(S), 5.0])
+        cfg, algo_cls, _ = export_from_registry("yolo8_det")
+        loss_fn = algo_cls(cfg, device=cpu).build_loss()
+        runs = []
+        for dev in (cpu, self.dev):
+            m = copy.deepcopy(model).to(dev, memory_format=torch.channels_last)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                raw = forward(copy.deepcopy(m).train(), b["images"], False)
+                _, _, aux = yolov8_loss(raw, b["gt_labels"], b["gt_bboxes"],
+                                        b["gt_mask"], return_aux=True)
+            state = TrainState.create(m, lr, use_ema=True)
+            step = make_train_step(loss_fn, device=dev, ema_decay=0.9999,
+                                   mixed_precision=False)
+            state, sm = step(state, b)
+            runs.append({
+                "fg": aux["fg"].cpu(), "gt_idx": aux["gt_idx"].cpu(),
+                "step": {k: float(v) for k, v in sm.items()},
+                "sd": {k: v.detach().cpu().double() for k, v in
+                       state.model.state_dict().items()}})
+        c, g = runs
+        check(torch.equal(c["fg"], g["fg"]), "TAL fg masks differ between "
+                                             "the card and the CPU")
+        check(torch.equal(c["gt_idx"], g["gt_idx"]),
+              "TAL GT rows differ between the card and the CPU")
+        check(bool(c["fg"][:, :10].all()),
+              "the top strip's zero-metric ties were not anchors 0-9")
+        rel = {}
+        for k, v in c["step"].items():
+            rel[k] = abs(g["step"][k] - v) / max(abs(v), 1e-12)
+            check(rel[k] <= 1e-4, f"{k}: card {g['step'][k]} against CPU {v}")
+        bn = max(float((g["sd"][k] - c["sd"][k]).abs().max())
+                 for k in c["sd"] if "running" in k)
+        check(bn <= 1e-5, f"BatchNorm statistics differ by {bn}")
+        diffs = torch.cat([(g["sd"][k] - c["sd"][k]).abs().flatten()
+                           for k in c["sd"] if "running" not in k
+                           and "num_batches" not in k])
+        pmax, frac = float(diffs.max()), float((diffs > 1e-5).double().mean())
+        check(pmax <= 2.1 * lr and frac <= 1e-3,
+              f"parameters differ by up to {pmax}, {frac} of them > 1e-5")
+        emit({"phase": "train_parity", "B": B, "S": S, "M": M,
+              "fg": int(c["fg"].sum()), "fg_bit_equal": True,
+              "gt_idx_bit_equal": True,
+              "tie_selected": "anchors 0-9 of each image",
+              "loss_cpu": c["step"]["loss"], "loss_card": g["step"]["loss"],
+              "max_rel_err": max(rel.values()), "rel_err": rel,
+              "bn_max_abs_err": bn, "param_max_abs_err": pmax,
+              "param_frac_over_1e-5": frac})
+
+    def phase_train(self):
+        """The bench entry point's train step at full width
+        (``tpucv_torch.bench.bench_train``): YOLOv8n, B=128, 640², M=32,
+        bf16 autocast, channels_last, Adam 1e-3, EMA 0.9999; 3 warm-up
+        and 10 timed steps, then one step split into its stages."""
+        import dataclasses
+
+        from tpucv_torch import bench
+
+        shapes = dataclasses.replace(bench.FULL, train_iters=10)
+        res = bench.bench_train(self.dev, shapes)
+        emit({"phase": "train", "batch": shapes.train_batch,
+              "size": shapes.size, "max_boxes": shapes.max_boxes,
+              "warmup": shapes.train_warmup, "iters": shapes.train_iters,
+              **res, "nvidia_smi": nvidia_smi()})
+        return res
 
     def bound(self, sb, ss, keep, thr):
         """Least time for the greedy keep mask on these inputs: bytes (boxes
@@ -722,6 +814,8 @@ def main() -> int:
 
     bw = phase_probe_bw(torch)
     conv = phase_probe_conv(torch)
+    smoke.phase_train_parity()
+    smoke.phase_train()
 
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{

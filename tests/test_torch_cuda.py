@@ -12,7 +12,14 @@ contraction, so no pair near the threshold may flip. ``add_one`` must be
 bit-equal to ``x + 1``. The 3x3 conv may differ from its plain version by
 one bf16 ulp at the largest value (2^-7 * max |plain|): both sum in f32,
 in other orders, and round once to bf16.
+
+The training step has no kernel of its own; its tests at the end hold the
+card against the CPU: the TAL top-k's lowest-index tie order and the
+assignment bit-equal, one f32 step within the CPU tests' bounds against
+tpucv, and the bf16 step finite.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -306,3 +313,159 @@ def test_conv3x3_refuses_what_it_cannot_take():
     off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
     with pytest.raises(ValueError):        # not 16-byte aligned
         conv3x3(off.view(x.shape), w)
+
+
+# ---------------------------------------------------------------------------
+# The training step on the card (no kernel of its own: torch ops and
+# torch.optim.Adam), held against the same code on the CPU.
+
+def _train_parts():
+    from tpucv_torch import bench
+    from tpucv_torch.builder import export_from_registry
+    from tpucv_torch.losses import tal
+    from tpucv_torch.losses.yolov8 import yolov8_loss
+    from tpucv_torch.train import state
+    cfg, algo_cls, _ = export_from_registry("yolo8_det")
+    return bench, tal, yolov8_loss, state, algo_cls(cfg, "cpu").build_loss()
+
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("A", [7, 336, 8400])
+def test_tal_topk_breaks_ties_by_lowest_index_on_the_card(A):
+    """Rows of zeros with a few positives: the card marks the same anchors
+    as the CPU, the positives and then the lowest indices."""
+    _, tal, _, _, _ = _train_parts()
+    g = torch.Generator().manual_seed(A)
+    rows = torch.zeros((4, 32, A))
+    hot = torch.randint(0, A, (4, 32, 3), generator=g)
+    rows.scatter_(-1, hot, torch.rand((4, 32, 3), generator=g))
+    k = min(10, A)
+    cpu = tal.topk_mask(rows, k)
+    card = tal.topk_mask(rows.cuda(), k).cpu()
+    assert torch.equal(cpu, card)
+    want = torch.zeros_like(cpu)
+    for i in range(4):
+        for j in range(32):
+            r = rows[i, j].tolist()
+            order = sorted(range(A), key=lambda a: (-r[a], a))[:k]
+            want[i, j, order] = True
+    assert torch.equal(cpu, want)
+
+
+@pytest.mark.parametrize("case", ["random", "zero_scores", "top_strip"])
+def test_tal_assignment_on_the_card_equals_the_cpu(case):
+    """The assigner on the card: fg mask, GT rows and labels bit-equal to
+    the CPU's, boxes and scores within 1e-6, at the full-width shape
+    (A = 8400, M = 32)."""
+    _, tal, _, _, _ = _train_parts()
+    from tpucv_torch.ops.anchors import make_anchors
+    g = torch.Generator().manual_seed(3)
+    B, M, nc = 2, 32, 80
+    pts, st = make_anchors([(80, 80), (40, 40), (20, 20)], (8, 16, 32),
+                           device="cpu")
+    anc = pts * st
+    A = anc.shape[0]
+    scores = torch.rand((B, A, nc), generator=g) * 0.3
+    half = torch.rand((B, A, 2), generator=g) * 60 + 4
+    pd = torch.cat([anc - half, anc + half], -1)
+    xy = torch.rand((B, M, 2), generator=g) * 400
+    gt = torch.cat([xy, xy + torch.rand((B, M, 2), generator=g) * 200 + 8],
+                   -1)
+    labels = torch.randint(0, nc, (B, M), generator=g, dtype=torch.int32)
+    mask = torch.ones((B, M), dtype=torch.bool)
+    mask[1, 20:] = False
+    if case == "zero_scores":               # every metric 0: pure ties
+        scores.zero_()
+        gt[:, 1] = torch.tensor([0.0, 0.0, 100.0, 30.0])
+    elif case == "top_strip":
+        pd = torch.cat([anc - 60, anc + 60], -1).expand(B, A, 4).clone()
+        gt[:, 0] = torch.tensor([0.0, 0.0, 640.0, 5.0])
+    args = (scores, pd, anc, labels, gt, mask)
+    cpu = tal.task_aligned_assigner(*args)
+    card = tal.task_aligned_assigner(*(a.cuda() for a in args))
+    for name in ("fg_mask", "target_gt_idx", "target_labels"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), \
+            name
+    for name in ("target_bboxes", "target_scores"):
+        torch.testing.assert_close(getattr(card, name).cpu(),
+                                   getattr(cpu, name), atol=1e-6, rtol=0)
+    if case != "random":                    # zero-metric ties: anchors 0-9
+        assert bool(cpu.fg_mask[:, :10].all())
+    assert bool(cpu.fg_mask.any())
+
+
+def test_train_step_on_the_card_equals_the_cpu(no_tf32):
+    """One f32 step (TF32 off) of YOLOv8n on the card against the CPU,
+    same weights and batch: loss and metrics within 1e-4 relative,
+    BatchNorm statistics within 1e-5, parameters within 2.1 * lr with all
+    but 0.1% of elements within 1e-5 (the CPU tests' bounds against
+    tpucv), the EMA within (1 - 0.99) times the parameters' bound."""
+    bench, _, _, state_mod, loss_fn = _train_parts()
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    model = bench.yolo8n(cpu)
+    batch = bench.synthetic_batch(2, 96, 4, cpu, 80.0, torch.float32, seed=2)
+    out = []
+    for d in (cpu, dev):
+        m = copy.deepcopy(model).to(d, memory_format=torch.channels_last)
+        st = state_mod.TrainState.create(m, 1e-3, use_ema=True)
+        step = state_mod.make_train_step(loss_fn, device=d, ema_decay=0.99,
+                                         mixed_precision=False)
+        st, metrics = step(st, {k: v.to(d) for k, v in batch.items()})
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {k: v.detach().cpu() for k, v in
+                     st.model.state_dict().items()},
+                    {k: v.cpu() for k, v in st.ema.items()}))
+    (cm, csd, cema), (gm, gsd, gema) = out
+    for k in cm:
+        assert gm[k] == pytest.approx(cm[k], rel=1e-4), k
+    diffs = []
+    for k in csd:
+        d = (gsd[k].double() - csd[k].double()).abs()
+        if "running" in k:
+            assert float(d.max()) <= 1e-5, k
+        elif "num_batches" not in k:
+            diffs.append(d.flatten())
+    diffs = torch.cat(diffs)
+    assert float(diffs.max()) <= 2.1e-3
+    assert float((diffs > 1e-5).double().mean()) <= 1e-3
+    for k in cema:
+        assert float((gema[k] - cema[k]).abs().max()) <= (1 - 0.99) * 2.1e-3, k
+
+
+def test_train_step_bf16_on_the_card():
+    """The bench's step (bf16 autocast, channels_last) at a small size:
+    finite metrics left on the card; a parameter whose Adam moment is
+    zero everywhere (no gradient reached it, e.g. a level's box branch
+    without a foreground anchor) unchanged, most others moved; the frozen
+    DFL projection untouched."""
+    bench, _, _, _, _ = _train_parts()
+    import dataclasses
+    shapes = dataclasses.replace(bench.SMALL, size=128, train_batch=4,
+                                 max_boxes=8, box_scale=100.0)
+    st, step, batch = bench.train_setup(torch.device("cuda"), shapes)
+    assert batch["images"].dtype == torch.bfloat16
+    before = {k: p.detach().clone() for k, p in st.params.items()}
+    for _ in range(2):
+        st, m = step(st, batch)
+    assert all(v.is_cuda for v in m.values())
+    assert all(torch.isfinite(v) for v in m.values())
+    moved = 0
+    for k, p in st.params.items():
+        changed = bool((p.detach() != before[k]).any())
+        if not st.optimizer.state[p]["exp_avg"].any():
+            assert not changed, k
+        moved += changed
+    assert moved >= 0.9 * len(before)
+    assert torch.equal(st.model.state_dict()["model.22.dfl.conv.weight"]
+                       .flatten().cpu(), torch.arange(16.0))
+    assert st.step == 2

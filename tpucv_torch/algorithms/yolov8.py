@@ -1,5 +1,5 @@
 """YOLOv8 algorithm façade (counterpart of ``tpucv/algorithms/yolov8.py``):
-model factory and the batched inference function."""
+model and loss factories and the batched inference function."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import torch
 
 from tpucv_torch.algorithms.base import DetectionAlgorithm
 from tpucv_torch.decode.yolov8 import decode_boxes
+from tpucv_torch.losses.yolov8 import yolov8_loss
 from tpucv_torch.models.yolov8 import Yolo8
 from tpucv_torch.ops.preprocess import normalize_images
 from tpucv_torch.registry import model_registry
@@ -36,6 +37,20 @@ class YOLOv8(DetectionAlgorithm):
     def build_model(self) -> Yolo8:
         return Yolo8(scale=self.cfg.arch.model_type, nc=self.nc,
                      reg_max=self.cfg.arch.reg_max)
+
+    def build_loss(self):
+        """``loss_fn(raw_maps, batch) -> (loss, metrics)`` over a batch
+        dict with ``gt_labels``, ``gt_bboxes`` and ``gt_mask``."""
+        l, a = self.cfg.loss, self.cfg.arch
+
+        def loss_fn(raw, batch):
+            return yolov8_loss(
+                raw, batch["gt_labels"], batch["gt_bboxes"], batch["gt_mask"],
+                nc=self.nc, reg_max=a.reg_max, strides=a.strides,
+                box_gain=l.box_gain, cls_gain=l.cls_gain, dfl_gain=l.dfl_gain,
+                tal_topk=l.tal_topk)
+
+        return loss_fn
 
     def make_infer_fn(self, conf_threshold: Optional[float] = None):
         kw = yolo_decode_args(self.cfg, self.nc, conf_threshold)

@@ -1,11 +1,10 @@
 """Config schema — the sub-objects of tpucv's ``configs/base.py`` that the
-serving path reads. Loss and optimizer sections arrive with the training
-slice."""
+serving path and the training step read."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Tuple
 
 
 @dataclass
@@ -17,6 +16,17 @@ class DatasetCfg:
 @dataclass
 class TrainCfg:
     mixed_precision: bool = True        # bf16 autocast for the forward
+
+
+@dataclass
+class OptimizerCfg:
+    name: str = "adam"
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    warmup_iters: int = 1000
+    milestones: Tuple[int, ...] = ()    # epochs; converted to iters by trainer
+    gamma: float = 0.1
+    ema_decay: float = 0.0              # 0 disables
 
 
 @dataclass
@@ -35,4 +45,6 @@ class BaseConfig:
     arch: Any = None
     dataset: DatasetCfg = field(default_factory=DatasetCfg)
     train: TrainCfg = field(default_factory=TrainCfg)
+    loss: Any = None
+    optimizer: OptimizerCfg = field(default_factory=OptimizerCfg)
     decode: DecodeCfg = field(default_factory=DecodeCfg)

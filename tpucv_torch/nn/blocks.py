@@ -5,7 +5,8 @@ tpucv's NHWC layout meets them, and on the card it runs them in the
 ``channels_last`` memory format, which is NHWC in memory. Submodule names
 follow ultralytics (``conv``/``bn``, ``cv1``/``cv2``, ``m.{i}``), so a
 ``state_dict`` carries ultralytics key names. BatchNorm uses eps 1e-3 and
-momentum 0.03, as tpucv and the reference do.
+momentum 0.03, as tpucv and the reference do, and in train mode keeps
+flax's running statistics (:class:`BatchNorm2d`).
 
 Only the float path of ``tpucv.quant.conv_bn`` is here; int8 PTQ is later
 work.
@@ -31,6 +32,33 @@ def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
     return k // 2 if p is None else p
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode keeps flax's running statistics.
+
+    flax's ``nn.BatchNorm`` (tpucv's) folds the biased batch variance into
+    its running variance; ``nn.BatchNorm2d`` folds the unbiased one, so the
+    two drift apart a little on every step. Here train mode normalises with
+    the biased batch statistics, as both do, and then updates
+    ``running = (1 - m) * running + m * stat`` with the biased variance.
+    The variance comes back from the fused kernel's saved inverse standard
+    deviation, ``var = invstd**-2 - eps``, so no extra pass reads the
+    input. Eval mode, the keys and the ``state_dict`` are
+    ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = invstd.double().pow(-2).sub(self.eps).float()
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class ConvBnAct(nn.Module):
     """Conv2d (no bias) + BatchNorm + SiLU."""
 
@@ -40,7 +68,7 @@ class ConvBnAct(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, k, s, autopad(k, p, d),
                               dilation=d, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,6 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-import numpy as np
 import torch
 
 
@@ -18,14 +17,18 @@ def make_anchors(
     """Anchor centre points + per-anchor stride.
 
     Returns (anchor_points (A, 2) in feature units, strides (A, 1)) on
-    ``device``; A = sum HW, x fastest within a level.
+    ``device``; A = sum HW, x fastest within a level. Built on ``device``
+    itself: a copy from host memory would make the host wait for the
+    device's queue on every call.
     """
     points, strs = [], []
     for (h, w), s in zip(feat_shapes, strides):
-        sx = np.arange(w, dtype=np.float32) + grid_cell_offset
-        sy = np.arange(h, dtype=np.float32) + grid_cell_offset
-        gy, gx = np.meshgrid(sy, sx, indexing="ij")
-        points.append(np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1))
-        strs.append(np.full((h * w, 1), s, dtype=np.float32))
-    return (torch.from_numpy(np.concatenate(points)).to(device),
-            torch.from_numpy(np.concatenate(strs)).to(device))
+        sx = torch.arange(int(w), dtype=torch.float32, device=device) \
+            + grid_cell_offset
+        sy = torch.arange(int(h), dtype=torch.float32, device=device) \
+            + grid_cell_offset
+        gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+        points.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], -1))
+        strs.append(torch.full((int(h) * int(w), 1), float(s),
+                               dtype=torch.float32, device=device))
+    return torch.cat(points), torch.cat(strs)
