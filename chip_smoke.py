@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpucv_torch's paths once on one NVIDIA GPU: the yolo8_det serving
 path, the bench entry point's inference program, the four measurement
-probes and the YOLOv8 training step.
+probes, the YOLOv8 training step and the YOLOv8 trainer.
 
     python3 chip_smoke.py
 
@@ -58,6 +58,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
             optimizer + EMA (median of 5, a sync after each stage), and
             the compute bound (3 x the forward's convolution FLOPs over
             the dense bf16 rate) as a share of the step (mfu).
+10. augment  augment_batch at B=16, 640², M=100 on the card against the
+            same call on the CPU, f32: the gather's source indices equal,
+            pixels within AUG_PIXEL_TOL, boxes within 1e-5; ms (bf16 out).
+11. trainer  Yolo8Trainer on yolo8_det's config as shipped (640², B=16,
+            M=100, device_aug, mosaic 0.5, num_workers 0, bf16) for 40
+            steps, 10 epochs of the synthetic set: evaluate_loop, the
+            periodic and the final save. Steps, finite losses, images/s
+            and the wait in next(loader) over steps 8-39 (host clock), the
+            step on a device-resident batch (CUDA events) and its kernel
+            time (torch.profiler), augment ms, the busy share, checkpoint
+            save / load ms and bytes, peak memory, the host's CPUs; then
+            the loader alone at 0 and 4 workers (host images/s, ms to each
+            epoch's first batch), over the trainer's set and a set of 256.
+12. ckpt_serve  the final checkpoint through CheckPoint.load_pure into a
+            fresh serving model (weights bit-equal to the trained ones),
+            one batch of 8 images through _batched_detections (nms_keep's
+            count zeroed just before, read just after), detections held
+            against the plain-NMS route as in serve_vs_plain.
+13. resume   a new trainer resumes from the epoch-9 checkpoint: step 40
+            and weights and Adam's state bit-equal to the file after
+            loading, then 4 more steps with a finite loss.
 
 The line before the last holds {"kernels": [...]} (nms_keep, add_one,
 conv3x3); the last line is
@@ -69,6 +90,7 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import threading
@@ -84,6 +106,10 @@ IOU_OPS = 14       # min, max, sub, clamp per axis (8), mul, add, sub, add,
 AREA_OPS = 5       # div, compare; area: two sub, two clamp, one mul
 CLS_GAIN = 3000.0  # the init's class logits are ~1e-4: scores would all
                    # round to 0.5 in bf16; scaled up they spread
+ROOT = Path(__file__).resolve().parent
+AUG_PIXEL_TOL = 1e-5   # augment_batch, card against CPU, f32 values in [0, 1]
+TRAIN_STEPS = 40       # 10 epochs of the synthetic set's 4 batches of 16
+STEADY_FROM = 8        # the trainer's window: steps 8-39 (epochs 2-9)
 
 
 def emit(obj) -> None:
@@ -113,6 +139,48 @@ class Tee:
 def check(cond, msg) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+class Recorder:
+    """Takes the trainer's TensorBoard slot: keeps each logged scalar."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add_scalar(self, key, value, step):
+        self.rows.setdefault(key, {})[step] = float(value)
+
+
+class TimedLoader:
+    """A loader that records, for each batch, the host time spent in
+    ``next()`` and the moment the batch was handed over."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.waits = []
+        self.handed = []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                t1 = time.perf_counter()
+                self.waits.append(t1 - t0)
+                self.handed.append(t1)
+                yield batch
+        finally:
+            it.close()
 
 
 def nvidia_smi() -> str:
@@ -298,7 +366,8 @@ class Smoke:
               "warmup_s": warm_s, "wall_s": wall, "stats": stats})
         return imgs, results, launches
 
-    def phase_serve_vs_plain(self, algo, model, imgs, results):
+    def phase_serve_vs_plain(self, algo, model, imgs, results,
+                             phase="serve_vs_plain"):
         """The served images' NMS candidates, again through the kernel and
         through its plain version: identical keep masks, and the plain
         route's detections (count and classes per image) equal the
@@ -354,7 +423,7 @@ class Smoke:
         check(all(v > 0 for v in valid_cands), "no valid candidates")
         check(any(k < v for k, v in zip(kept, valid_cands)),
               "NMS suppressed nothing")
-        emit({"phase": "serve_vs_plain", "K": kw["pre_nms_topk"],
+        emit({"phase": phase, "K": kw["pre_nms_topk"],
               "valid_candidates": valid_cands, "kept": kept,
               "identical": True})
         return capture, thr
@@ -535,6 +604,308 @@ class Smoke:
               "warmup": shapes.train_warmup, "iters": shapes.train_iters,
               **res, "nvidia_smi": nvidia_smi()})
         return res
+
+    # ------------------------------------------------- the trainer (PR 8)
+    def _aug_inputs(self, B, S, M, seed=7):
+        """A uint8 batch, boxes and the trainer's host-drawn parameters."""
+        rng = np.random.default_rng(seed)
+        images = rng.integers(0, 256, (B, S, S, 3), np.uint8)
+        xy = rng.random((B, M, 2)) * S * 0.7
+        boxes = np.concatenate([xy, xy + rng.random((B, M, 2)) * S * 0.3],
+                               -1).astype(np.float32)
+        scale = rng.uniform(0.5, 1.5, B).astype(np.float32)
+        shift = (rng.random((B, 2)).astype(np.float32)
+                 * np.maximum(S * (1.0 - scale), 0.0)[:, None])
+        flip = rng.random(B) < 0.5
+        hsv = (1.0 + (rng.random((B, 3)) * 2 - 1)
+               * np.array([0.1, 0.7, 0.4])).astype(np.float32)
+        return images, boxes, (scale, shift.astype(np.float32), flip, hsv)
+
+    def phase_augment(self, B=16, S=640, M=100):
+        """augment_batch at the trainer's shape (B=16, 640², M=100) on the
+        card against the same call on the CPU, f32: the gather's source
+        indices equal, pixels within AUG_PIXEL_TOL, boxes within 1e-5;
+        then timed (CUDA events) with the trainer's bf16 output."""
+        from tpucv_torch.ops.augment import (AffineParams, augment_batch,
+                                             source_indices)
+        from tpucv_torch.probes.common import timed
+
+        torch = self.torch
+        images, boxes, params = self._aug_inputs(B, S, M)
+        cpu = AffineParams(*(torch.from_numpy(a) for a in params))
+        card = AffineParams(*(t.to(self.dev) for t in cpu))
+        for a, b in zip(source_indices(cpu, S), source_indices(card, S)):
+            check(torch.equal(a, b.cpu()), "augment_batch: the gather's "
+                                           "source indices differ")
+        img_c, box_c = torch.from_numpy(images), torch.from_numpy(boxes)
+        img_g, box_g = img_c.to(self.dev), box_c.to(self.dev)
+        out_c, ob_c = augment_batch(img_c, box_c, cpu, dtype=torch.float32)
+        out_g, ob_g = augment_batch(img_g, box_g, card, dtype=torch.float32)
+        err = float((out_g.cpu() - out_c).abs().max())
+        share = float((out_g.cpu() != out_c).double().mean())
+        box_err = float((ob_g.cpu() - ob_c).abs().max())
+        check(err <= AUG_PIXEL_TOL, f"augment_batch: pixels differ by {err}")
+        check(box_err <= 1e-5, f"augment_batch: boxes differ by {box_err}")
+        ms = timed(lambda: augment_batch(img_g, box_g, card), 20, self.dev)
+        row = {"B": B, "S": S, "M": M, "indices_equal": True,
+               "max_abs_err": err, "tolerance": AUG_PIXEL_TOL,
+               "share_differing": share, "box_max_abs_err": box_err,
+               "ms_bf16": ms}
+        emit({"phase": "augment", **row})
+        return row
+
+    def phase_trainer(self, aug):
+        """Yolo8Trainer on yolo8_det's config as shipped (640², B=16,
+        M=100, device_aug, mosaic 0.5, num_workers 0, bf16) for
+        TRAIN_STEPS steps: 4 steps an epoch on the synthetic set, so epoch
+        9 ends the run through evaluate_loop, the periodic save and the
+        final save. The loop's wait in next(loader) and its pace are read
+        on the host clock over steps STEADY_FROM..39; the step alone is
+        then timed on a device-resident batch (CUDA events) and its kernels
+        summed by torch.profiler; checkpoint saves timed; the loader timed
+        alone at 0 and 4 workers."""
+        import os
+        import shutil
+        import statistics
+
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.data.loader import Loader
+        from tpucv_torch.probes.common import timed
+
+        torch = self.torch
+        cfg, _, cls = export_from_registry("yolo8_det")
+        t, d = cfg.train, cfg.dataset
+        check(d.input_size == 640 and t.batch_size == 16
+              and d.max_num_boxes == 100 and t.device_aug
+              and t.mosaic_prob == 0.5 and d.num_workers == 0
+              and t.mixed_precision and cfg.arch.model_type == "n",
+              "yolo8_det's config is not 640/B16/M100/device_aug/mosaic "
+              "0.5/0 workers/bf16 YOLOv8n")
+        out = ROOT / "saves" / "chip_smoke"
+        shutil.rmtree(out, ignore_errors=True)
+        t.save_path = str(out / "saves")
+        cfg.log.root = str(out / "log")
+        cfg.log.tensorboard_dir = str(out / "runs")
+
+        t0 = time.perf_counter()
+        trainer = cls(cfg, device=self.dev)
+        build_s = time.perf_counter() - t0
+        check(len(trainer.train_loader) == 4, "the synthetic set is not 4 "
+                                              "batches of 16")
+        rec = Recorder()
+        trainer.tb = rec
+        feed = TimedLoader(trainer.train_loader)
+        trainer.train_loader = feed
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = trainer.train(max_steps=TRAIN_STEPS)
+        self.sync()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        steps = state.step
+        check(steps == TRAIN_STEPS, f"took {steps} steps")
+        final_sd = {k: v.detach().cpu().clone()
+                    for k, v in state.model.state_dict().items()}
+        check(all(torch.isfinite(v).all() for v in final_sd.values()),
+              "non-finite weights after training")
+        losses = rec.rows["train/loss"]
+        check(all(np.isfinite(v) for v in losses.values()), "non-finite loss")
+        val = trainer.last_eval
+        check(np.isfinite(val["val_loss"]), "non-finite val loss")
+        saves = sorted(os.listdir(t.save_path))
+        check(saves == ["yolo8_det_coco_epoch-9.ckpt",
+                        "yolo8_det_coco_final.ckpt"], f"saved {saves}")
+        final_path = trainer._ckpt_path(t.epochs - 1, final=True)
+
+        # the loop over the steady window, on the host clock
+        h, w = feed.handed, feed.waits
+        n_win = TRAIN_STEPS - 1 - STEADY_FROM
+        step_wall_ms = (h[TRAIN_STEPS - 1] - h[STEADY_FROM]) / n_win * 1e3
+        waits_ms = [x * 1e3 for x in w[STEADY_FROM:TRAIN_STEPS]]
+
+        # the step alone on a device-resident batch
+        step = trainer.build_train_step()
+        host = next(iter(feed.loader))
+        batch = trainer.device_batch(host, train=True)
+        for _ in range(3):
+            state, _m = step(state, batch)
+        step_ms = timed(lambda: step(state, batch), 10, self.dev)
+        prof_ms = self._kernel_ms_a_step(step, state, batch, 5)
+        device_ms = prof_ms if prof_ms is not None else step_ms
+
+        ckpt = str(out / "timing.ckpt")
+        save_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            CheckPoint.save(state, ckpt)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        CheckPoint.load(ckpt, state)
+        self.sync()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_bytes = os.path.getsize(final_path)
+
+        loaders = {"train_set": self._loader_rates(feed.loader.ds, 2),
+                   "set_of_256": self._loader_rates(
+                       self._detection_set(256, cfg), 1)}
+
+        row = {
+            "config": "yolo8_det as shipped: YOLOv8n, 640, B=16, M=100, "
+                      "device_aug, mosaic 0.5, num_workers 0, bf16",
+            "steps": steps, "epochs_run": 10, "build_s": build_s,
+            "train_s": train_s, "loss_logged": losses,
+            "val": val, "saves": saves,
+            "window_steps": [STEADY_FROM, TRAIN_STEPS - 1],
+            "step_wall_ms": step_wall_ms,
+            "img_per_s": 16 / step_wall_ms * 1e3,
+            "loader_wait_ms_mean": float(np.mean(waits_ms)),
+            "loader_wait_ms_median": statistics.median(waits_ms),
+            "loader_wait_ms_by_step": waits_ms,
+            "step_ms_device_resident": step_ms,
+            "step_kernel_ms_profiler": prof_ms,
+            "augment_ms": aug["ms_bf16"],
+            "busy_share": (device_ms + aug["ms_bf16"]) / step_wall_ms,
+            "busy_share_from": "profiler kernel sum" if prof_ms is not None
+                               else "CUDA events, device-resident step",
+            "ckpt_save_ms": save_ms, "ckpt_load_ms": load_ms,
+            "ckpt_bytes": ckpt_bytes, "peak_mem_bytes": peak,
+            "loader_alone": loaders,
+            "host_cpus": len(os.sched_getaffinity(0)),
+            "nvidia_smi": nvidia_smi()}
+        emit({"phase": "trainer", **row})
+        return {"cls": cls, "cfg": cfg, "final_path": final_path,
+                "final_sd": final_sd}
+
+    @staticmethod
+    def _detection_set(n, cfg):
+        """A synthetic training set of ``n`` images built as the trainer
+        builds its own (trainer/data_helpers.py)."""
+        from tpucv_torch.data.detection_dataset import (
+            DetectionDataset, SyntheticDetectionIndex)
+
+        s, t = cfg.dataset.input_size, cfg.train
+        return DetectionDataset(
+            SyntheticDetectionIndex(n, s, cfg.num_classes, seed=0), s,
+            cfg.dataset.max_num_boxes, train=True,
+            mosaic_prob=t.mosaic_prob, special_aug_ratio=t.special_aug_ratio,
+            epochs=t.epochs, device_aug=t.device_aug)
+
+    @staticmethod
+    def _loader_rates(ds, epochs):
+        """Host images/s of the loader alone at 0 and 4 workers over
+        ``epochs`` epochs of ``ds`` in batches of 16, with the ms to each
+        epoch's first batch (the forked engine starts its workers there)."""
+        from tpucv_torch.data.loader import Loader
+
+        out = {}
+        for nw in (0, 4):
+            ld = Loader(ds, 16, shuffle=True, num_workers=nw)
+            n, first = 0, []
+            t0 = time.perf_counter()
+            for epoch in range(1, epochs + 1):
+                ld.set_epoch(epoch)
+                te = time.perf_counter()
+                for k, b in enumerate(ld):
+                    if k == 0:
+                        first.append((time.perf_counter() - te) * 1e3)
+                    n += b["images"].shape[0]
+            out[nw] = {"img_per_s": n / (time.perf_counter() - t0),
+                       "images": n, "first_batch_ms": first}
+        return out
+
+    def _kernel_ms_a_step(self, step, state, batch, n):
+        """Device kernel time a step, summed by torch.profiler over ``n``
+        steps; None when the profiler records no device time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step(state, batch)
+            self.sync()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        return us / n / 1e3 if us > 0 else None
+
+    def phase_resume(self, run):
+        """A new trainer resumes from the epoch-9 checkpoint
+        (resume_training, last_epoch=9): after loading, the step counter is
+        TRAIN_STEPS and the weights and Adam's state equal the file's bit
+        for bit; then 4 more steps (epoch 10) with a finite loss."""
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+
+        torch = self.torch
+        cfg = run["cfg"]
+        cfg.train.resume_training = True
+        cfg.train.last_epoch = 9
+        trainer = run["cls"](cfg, device=self.dev)
+        rec = Recorder()
+        trainer.tb = rec
+        path = trainer._ckpt_path(9)
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        CheckPoint.load(path, trainer.state)
+        check(trainer.state.step == TRAIN_STEPS,
+              f"resumed at step {trainer.state.step}")
+        sd = trainer.state.model.state_dict()
+        check(all(torch.equal(sd[k].cpu(), raw["model"][k]) for k in sd),
+              "weights after loading differ from the file")
+        check(all(torch.equal(sd[k].cpu(), run["final_sd"][k]) for k in sd),
+              "the epoch-9 file differs from the run's last weights")
+        opt = trainer.state.optimizer.state_dict()["state"]
+        check(all(torch.equal(v.cpu(), raw["optimizer"]["state"][i][k])
+                  for i, s in opt.items() for k, v in s.items()),
+              "Adam's state after loading differs from the file")
+        state = trainer.train(max_steps=TRAIN_STEPS + 4)
+        check(state.step == TRAIN_STEPS + 4, f"ended at step {state.step}")
+        loss = rec.rows["train/loss"]
+        check(list(loss) == [TRAIN_STEPS + 1] and np.isfinite(
+            loss[TRAIN_STEPS + 1]), f"resumed run logged {loss}")
+        emit({"phase": "resume", "from": path, "step_after_load":
+              TRAIN_STEPS, "bit_equal": True, "steps": state.step,
+              "loss": loss})
+
+    def phase_ckpt_serve(self, run, imgs):
+        """The final checkpoint through CheckPoint.load_pure into a fresh
+        serving model on the card (bit-equal to the trained weights), one
+        batch of 8 of the smoke's images through _batched_detections, so
+        through nms_keep, and the detections held against the plain-NMS
+        route as serve_vs_plain holds them. 40 warm-up steps (lr <= 4.1e-5)
+        leave the init's class scores near 1e-4, under any confidence
+        gate, so after loading the class branch is scaled as in serve."""
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        torch = self.torch
+        cfg, algo_cls, _ = export_from_registry("yolo8_det")
+        algo = algo_cls(cfg, device=self.dev)
+        model = algo.init_variables(seed=1)
+        model.load_state_dict(CheckPoint.load_pure(run["final_path"]))
+        sd = model.state_dict()
+        check(all(torch.equal(sd[k].cpu(), run["final_sd"][k]) for k in sd),
+              "served weights differ from the trained ones")
+        with torch.no_grad():
+            for head in model.model[22].cv3:
+                head[-1].bias.zero_()
+                head[-1].weight.mul_(CLS_GAIN)
+        index = [(im,) for im in imgs[:8]]
+        nms_keep.launches = 0                # just before the path
+        dets = list(algo._batched_detections(model, index, 8,
+                                             cfg.decode.conf_threshold))
+        launches = nms_keep.launches         # just after
+        check(launches > 0, "nms_keep was not launched")
+        results = [(200, {"detections": [{"class_id": int(c)}
+                                         for c in classes]})
+                   for _, _, _, classes in sorted(dets, key=lambda d: d[0])]
+        n_dets = [len(r[1]["detections"]) for r in results]
+        check(max(n_dets) > 0, "no detections")
+        self.phase_serve_vs_plain(algo, model, imgs[:8], results,
+                                  phase="ckpt_serve_vs_plain")
+        emit({"phase": "ckpt_serve", "ckpt": run["final_path"],
+              "weights_bit_equal": True, "nms_launches": launches,
+              "detections": n_dets})
+        return launches
 
     def bound(self, sb, ss, keep, thr):
         """Least time for the greedy keep mask on these inputs: bytes (boxes
@@ -816,13 +1187,20 @@ def main() -> int:
     conv = phase_probe_conv(torch)
     smoke.phase_train_parity()
     smoke.phase_train()
+    aug = smoke.phase_augment()
+    run = smoke.phase_trainer(aug)
+    ckpt_launches = smoke.phase_ckpt_serve(run, imgs)
+    smoke.phase_resume(run)       # last: its final save replaces the run's
+    shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
         "name": "nms_keep", "route": "cuda",
         "source": "tpucv_torch/csrc/nms.cu",
         "replaces": "tpucv/ops/pallas_nms.py:28 _nms_kernel",
-        "launches": launches, "mismatches": smoke.mismatches,
+        "launches": launches,
+        "launches_by_path": {"serve": launches, "ckpt_serve": ckpt_launches},
+        "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,
         "ms": main_row["ms"], "build_ms": main_row["build_ms"],

@@ -469,3 +469,61 @@ def test_train_step_bf16_on_the_card():
     assert torch.equal(st.model.state_dict()["model.22.dfl.conv.weight"]
                        .flatten().cpu(), torch.arange(16.0))
     assert st.step == 2
+
+
+def test_augment_card_matches_cpu():
+    """augment_batch on the card against the CPU (f32): the gather's
+    source indices equal, pixels within 1e-5 (chip_smoke's tolerance),
+    boxes within 1e-5; the bf16 output is the f32 one rounded."""
+    from tpucv_torch.ops.augment import (AffineParams, augment_batch,
+                                         source_indices)
+
+    rng = np.random.default_rng(3)
+    B, S = 4, 128
+    img = torch.from_numpy(rng.integers(0, 256, (B, S, S, 3), np.uint8))
+    boxes = torch.from_numpy((rng.random((B, 6, 4)) * S).astype(np.float32))
+    scale = rng.uniform(0.5, 1.5, B).astype(np.float32)
+    params = AffineParams(
+        torch.from_numpy(scale),
+        torch.from_numpy((rng.random((B, 2)) * np.maximum(
+            S * (1 - scale), 0)[:, None]).astype(np.float32)),
+        torch.from_numpy(rng.random(B) < 0.5),
+        torch.from_numpy((1 + (rng.random((B, 3)) * 2 - 1)
+                          * [0.1, 0.7, 0.4]).astype(np.float32)))
+    card = AffineParams(*(t.cuda() for t in params))
+    for a, b in zip(source_indices(params, S), source_indices(card, S)):
+        assert torch.equal(a, b.cpu())
+    out_c, ob_c = augment_batch(img, boxes, params, dtype=torch.float32)
+    out_g, ob_g = augment_batch(img.cuda(), boxes.cuda(), card,
+                                dtype=torch.float32)
+    assert float((out_g.cpu() - out_c).abs().max()) <= 1e-5
+    assert float((ob_g.cpu() - ob_c).abs().max()) <= 1e-5
+    bf16, _ = augment_batch(img.cuda(), boxes.cuda(), card)
+    assert torch.equal(bf16, out_g.to(torch.bfloat16))
+
+
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """A bundle saved from a train state on the card loads into another
+    one on the card bit for bit (weights, Adam's state on the card, step),
+    and the next step from each is the same."""
+    from tpucv_torch.ckpt.checkpoint import CheckPoint
+
+    bench, _, _, state_mod, _ = _train_parts()
+    import dataclasses
+    shapes = dataclasses.replace(bench.SMALL, size=128, train_batch=4,
+                                 max_boxes=8, box_scale=100.0)
+    st, step, batch = bench.train_setup(torch.device("cuda"), shapes)
+    st, _ = step(st, batch)
+    path = CheckPoint.save(st, str(tmp_path / "s.ckpt"))
+    other, _, _ = bench.train_setup(torch.device("cuda"), shapes)
+    CheckPoint.load(path, other)
+    assert other.step == st.step == 1
+    for k, v in st.model.state_dict().items():
+        assert torch.equal(other.model.state_dict()[k], v), k
+    for p, q in zip(st.params.values(), other.params.values()):
+        for k, v in st.optimizer.state[p].items():
+            w = other.optimizer.state[q][k]
+            assert w.device == v.device and torch.equal(w, v), k
+    _, m1 = step(st, batch)
+    _, m2 = step(other, batch)
+    assert float(m1["loss"]) == float(m2["loss"])

@@ -59,7 +59,7 @@ def _tpucv_algo(mixed_precision):
 
 def _port(variables, mixed_precision):
     pcfg, palgo_cls, trainer = export_from_registry("yolo8_det")
-    assert trainer is None
+    assert trainer.__name__ == "Yolo8Trainer"
     pcfg.train.mixed_precision = mixed_precision
     pcfg.dataset.input_size = 160
     palgo = palgo_cls(pcfg, device="cpu")

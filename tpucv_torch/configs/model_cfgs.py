@@ -1,5 +1,5 @@
 """Per-model configs (counterpart of ``tpucv/configs/model_cfgs.py``), with
-tpucv's hyperparameter values. Only the families the port serves are here."""
+tpucv's hyperparameter values. Only the families the port has so far are here."""
 
 from __future__ import annotations
 
@@ -33,11 +33,15 @@ class Yolo8DetConfig(BaseConfig):
     arch: Yolo8Arch = field(default_factory=Yolo8Arch)
     loss: Yolo8Loss = field(default_factory=Yolo8Loss)
     dataset: DatasetCfg = field(default_factory=lambda: DatasetCfg(
-        name="coco", input_size=640))
+        name="coco", input_size=640, max_num_boxes=100))
     optimizer: OptimizerCfg = field(default_factory=lambda: OptimizerCfg(
         name="adam", lr=1e-3, warmup_iters=1000, milestones=(60, 80)))
     decode: DecodeCfg = field(default_factory=lambda: DecodeCfg(
         conf_threshold=0.25, iou_threshold=0.7, max_det=300))
+
+    @property
+    def model_name(self) -> str:
+        return "yolo8_det"
 
     @property
     def num_classes(self) -> int:

@@ -1,7 +1,7 @@
 """Name-keyed registries (counterpart of ``tpucv/registry.py``): prefixed
 string keys, decorator registration with or without an explicit key.
-Registration happens as an import side effect of ``tpucv_torch.configs``
-and ``tpucv_torch.algorithms`` (see ``builder``)."""
+Registration happens as an import side effect of ``tpucv_torch.configs``,
+``tpucv_torch.algorithms`` and ``tpucv_torch.trainer`` (see ``builder``)."""
 
 from __future__ import annotations
 
@@ -25,6 +25,9 @@ class Register:
     def __getitem__(self, key: str) -> Any:
         return self._dict[key]
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._dict
+
     def register(self, target: Any = None):
         """Decorator usable as ``@reg`` or ``@reg("name")``."""
         if callable(target):  # @reg with no key
@@ -42,3 +45,4 @@ class Register:
 
 config_registry = Register("config", prefix="cfg_")
 model_registry = Register("model", prefix="model_")
+trainer_registry = Register("trainer", prefix="trainer_")

@@ -4,8 +4,10 @@
 
 Runs on CUDA unless ``--device cpu`` is given; on a machine without CUDA
 it stops with an error rather than moving to the CPU. ``--ckpt`` takes a
-torch ``state_dict`` with the ultralytics key names (``model.{i}...``);
-without it the weights are random, drawn from seed 0.
+checkpoint bundle the port's trainer wrote (``*.ckpt``) or a bare torch
+``state_dict`` with the ultralytics key names (``model.{i}...``), read
+through ``CheckPoint.load_pure``; without it the weights are random, drawn
+from seed 0.
 
   POST /predict  (body = JPEG/PNG bytes, or raw RGB) -> detections JSON
   GET  /healthz  -> model/config
@@ -16,17 +18,19 @@ from __future__ import annotations
 
 import argparse
 
-import torch
-
 from tpucv_torch.builder import export_from_registry
+from tpucv_torch.ckpt.checkpoint import CheckPoint
 from tpucv_torch.serving import make_server
 
 
-def main(argv=None):
+def build(argv=None):
+    """Parse the flags, load the model and return the server, not yet
+    serving (``main`` serves it)."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", type=str, required=True)
     parser.add_argument("--ckpt", type=str, default="",
-                        help="torch state_dict with ultralytics key names")
+                        help="a trainer checkpoint bundle, or a torch "
+                             "state_dict with ultralytics key names")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' must be asked for")
     parser.add_argument("--host", type=str, default="0.0.0.0")
@@ -49,8 +53,7 @@ def main(argv=None):
     algo = algo_cls(cfg, device=args.device)
     model = algo.init_variables()
     if args.ckpt:
-        model.load_state_dict(
-            torch.load(args.ckpt, map_location="cpu", weights_only=True))
+        model.load_state_dict(CheckPoint.load_pure(args.ckpt))
 
     conf = args.conf if args.conf is not None \
         else getattr(cfg.decode, "conf_threshold", 0.25)
@@ -62,8 +65,14 @@ def main(argv=None):
                          model_name=args.model,
                          request_timeout_s=args.request_timeout_s,
                          max_queue=args.max_queue)
-    print(f"serving {args.model} on http://{args.host}:{args.port} "
-          f"(POST /predict, GET /healthz, GET /stats)", flush=True)
+    print(f"serving {args.model} on http://{args.host}:"
+          f"{server.server_address[1]} (POST /predict, GET /healthz, "
+          f"GET /stats)", flush=True)
+    return server
+
+
+def main(argv=None):
+    server = build(argv)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

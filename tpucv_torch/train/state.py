@@ -179,12 +179,14 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
     return step
 
 
-def make_eval_step(loss_fn: LossFn, device="cuda"):
+def make_eval_step(loss_fn: LossFn, device="cuda",
+                   mixed_precision: Optional[bool] = None):
     """Build ``step(state, batch) -> metrics``: the model in eval mode (its
     running BatchNorm statistics), no gradient, the loss and its metrics;
-    the forward under bf16 autocast on CUDA."""
+    the forward under bf16 autocast when ``mixed_precision`` (default: on
+    CUDA)."""
     dev = resolve_device(device)
-    amp = dev.type == "cuda"
+    amp = dev.type == "cuda" if mixed_precision is None else mixed_precision
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
