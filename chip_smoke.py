@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive tpucv_torch's paths once on one NVIDIA GPU: the yolo8_det serving
 path, the bench entry point's inference program, the four measurement
-probes, the YOLOv8 training step and the YOLOv8 trainer.
+probes, the YOLOv8 training step, the YOLOv8 trainer, and predict,
+evaluate and in-training mAP on the trainer's checkpoint.
 
     python3 chip_smoke.py
 
@@ -76,7 +77,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
             one batch of 8 images through _batched_detections (nms_keep's
             count zeroed just before, read just after), detections held
             against the plain-NMS route as in serve_vs_plain.
-13. resume   a new trainer resumes from the epoch-9 checkpoint: step 40
+13. predict  the final checkpoint with the class branch sharpened as in
+            serve (sharpened.ckpt), through python -m tpucv_torch.predict's
+            main on 4 JPEGs and a PNG (conf 0.25, K <= 1024): nms_keep's
+            count zeroed just before, read just after; drawn files exist;
+            detections equal to the same run through nms_keep's plain
+            version; ms an image split into decode, letterbox, device and
+            draw.
+14. evaluate  a COCO-layout root written by the script (64 640x480 JPEGs,
+            one PNG, one crowd GT) through python -m tpucv_torch.evaluate's
+            main with sharpened.ckpt (B=32, conf 0.001: K = 4096, the
+            sequential scan, no kernel): the 12 stats, images/s; the native
+            COCOeval must build, and on the CLI's eval_results.json equals
+            the numpy engine within 1e-12; then the CLI again with
+            recorders around its own stages: ms a batch (full batches of
+            32 apart from the last of 1) split into canvas fill, H2D +
+            letterbox + forward + top-k, the scan and D2H + records, and
+            COCOeval's ms; every batch's scan equal to the CPU's from the
+            candidates the CLI gave it; the decode engine (native or cv2)
+            and the host loader's rate over the JPEGs with each.
+15. eval_map  trainer.evaluate_map on the run's final state, its
+            parameters (class branch sharpened) handed over as the EMA
+            (16 synthetic val images, B=16, conf 0.01: K = 1024): nms_keep's
+            count, detections equal to the plain route's, the trained
+            weights unchanged, ms a call.
+16. resume   a new trainer resumes from the epoch-9 checkpoint: step 40
             and weights and Adam's state bit-equal to the file after
             loading, then 4 more steps with a finite loss.
 
@@ -110,6 +135,9 @@ ROOT = Path(__file__).resolve().parent
 AUG_PIXEL_TOL = 1e-5   # augment_batch, card against CPU, f32 values in [0, 1]
 TRAIN_STEPS = 40       # 10 epochs of the synthetic set's 4 batches of 16
 STEADY_FROM = 8        # the trainer's window: steps 8-39 (epochs 2-9)
+# the evaluate loop's stages a batch, as _recorded_evaluate splits them
+LOOP_STAGES = ("fill_canvases", "h2d_letterbox_forward_topk", "scan",
+               "d2h_records")
 
 
 def emit(obj) -> None:
@@ -183,12 +211,61 @@ class TimedLoader:
             it.close()
 
 
+def sharpen_(model) -> None:
+    """Zero the class branch's biases and scale its last kernels by
+    CLS_GAIN, in place, so scores spread and the NMS has work."""
+    import torch
+
+    with torch.no_grad():
+        for head in model.model[22].cv3:
+            head[-1].bias.zero_()
+            head[-1].weight.mul_(CLS_GAIN)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def write_coco_root(root: Path, n: int) -> int:
+    """A COCO-layout root (``val2017/``, ``annotations/instances_val2017
+    .json``): ``n`` 640x480 JPEGs and one PNG cut from
+    SyntheticDetectionIndex's 640x640 images, their boxes as GTs, the first
+    one a crowd GT. Returns the image count."""
+    import cv2
+
+    from tpucv_torch.configs.dataset_cfg import COCO80_TO_COCO91, COCO_CLASSES
+    from tpucv_torch.data.detection_dataset import SyntheticDetectionIndex
+
+    src = SyntheticDetectionIndex(n + 1, 640, 80, seed=2)
+    (root / "val2017").mkdir(parents=True, exist_ok=True)
+    (root / "annotations").mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for i in range(n + 1):
+        img, boxes, labels = src[i]
+        name = f"{i + 1:012d}{'.png' if i == n else '.jpg'}"
+        check(cv2.imwrite(str(root / "val2017" / name),
+                          cv2.cvtColor(img[:480], cv2.COLOR_RGB2BGR)),
+              f"could not write {name}")
+        images.append({"id": i + 1, "file_name": name, "height": 480,
+                       "width": 640})
+        for b, lab in zip(boxes.tolist(), labels.tolist()):
+            x1, y1, x2, y2 = b[0], b[1], b[2], min(b[3], 480.0)
+            if y2 - y1 < 2:
+                continue
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": COCO80_TO_COCO91[lab],
+                         "bbox": [x1, y1, x2 - x1, y2 - y1],
+                         "area": (x2 - x1) * (y2 - y1),
+                         "iscrowd": int(not anns)})
+    with open(root / "annotations" / "instances_val2017.json", "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [
+            {"id": c, "name": COCO_CLASSES[k]}
+            for k, c in enumerate(COCO80_TO_COCO91)]}, f)
+    return n + 1
 
 
 # ---------------------------------------------------------------- phases --
@@ -262,17 +339,13 @@ class Smoke:
     def serving_setup(self):
         from tpucv_torch.builder import export_from_registry
 
-        torch = self.torch
         cfg, algo_cls, _ = export_from_registry("yolo8_det")
         check(cfg.arch.model_type == "n" and cfg.dataset.input_size == 640
               and cfg.num_classes == 80 and cfg.train.mixed_precision,
               "yolo8_det config is not YOLOv8n/640/nc80/bf16")
         algo = algo_cls(cfg, device=self.dev)
         model = algo.init_variables(seed=0)
-        with torch.no_grad():
-            for head in model.model[22].cv3:
-                head[-1].bias.zero_()
-                head[-1].weight.mul_(CLS_GAIN)
+        sharpen_(model)
         return algo, model
 
     def phase_forward_f32(self, model):
@@ -775,7 +848,7 @@ class Smoke:
             "nvidia_smi": nvidia_smi()}
         emit({"phase": "trainer", **row})
         return {"cls": cls, "cfg": cfg, "final_path": final_path,
-                "final_sd": final_sd}
+                "final_sd": final_sd, "trainer": trainer}
 
     @staticmethod
     def _detection_set(n, cfg):
@@ -885,10 +958,7 @@ class Smoke:
         sd = model.state_dict()
         check(all(torch.equal(sd[k].cpu(), run["final_sd"][k]) for k in sd),
               "served weights differ from the trained ones")
-        with torch.no_grad():
-            for head in model.model[22].cv3:
-                head[-1].bias.zero_()
-                head[-1].weight.mul_(CLS_GAIN)
+        sharpen_(model)
         index = [(im,) for im in imgs[:8]]
         nms_keep.launches = 0                # just before the path
         dets = list(algo._batched_detections(model, index, 8,
@@ -905,6 +975,403 @@ class Smoke:
         emit({"phase": "ckpt_serve", "ckpt": run["final_path"],
               "weights_bit_equal": True, "nms_launches": launches,
               "detections": n_dets})
+        return launches
+
+    # ---------------------------------------------- predict and evaluate
+    def sharpened_ckpt(self, run):
+        """The run's final checkpoint with the class branch sharpened as in
+        serve (40 warm-up steps leave every class score near 1e-4, under
+        all three confidence gates), written beside it with save_pure."""
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+
+        cfg, algo_cls, _ = export_from_registry("yolo8_det")
+        model = algo_cls(cfg, device=self.dev).init_variables(seed=1)
+        model.load_state_dict(CheckPoint.load_pure(run["final_path"]))
+        sharpen_(model)
+        return CheckPoint.save_pure(
+            model, str(ROOT / "saves" / "chip_smoke" / "sharpened.ckpt"))
+
+    @staticmethod
+    def _swap_nms_keep(fn):
+        """Put ``fn`` where the decode calls nms_keep; returns what was
+        there."""
+        from tpucv_torch.ops import cuda_nms
+
+        was, cuda_nms.nms_keep = cuda_nms.nms_keep, fn
+        return was
+
+    def phase_predict(self, ckpt, imgs, reps=5):
+        """python -m tpucv_torch.predict's main on 4 JPEGs and 1 PNG with
+        the sharpened checkpoint (nms_keep's count zeroed just before, read
+        just after; conf 0.25, so K <= 1024); the drawn files exist; the
+        same run with nms_keep's plain version in its place gives the same
+        detections; then each image's time split into decode (read_image),
+        letterbox (host), device (H2D, forward, decode, NMS, D2H) and draw
+        (median of ``reps``)."""
+        import cv2
+
+        from tpucv_torch import predict as cli
+        from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
+        from tpucv_torch.utils.image_process import (letter_box, read_image,
+                                                     reverse_letter_box)
+        from tpucv_torch.utils.visualize import show_detection_results
+
+        torch = self.torch
+        out = ROOT / "saves" / "chip_smoke" / "predict"
+        out.mkdir(parents=True, exist_ok=True)
+        srcs = []
+        for k, img in enumerate(imgs[:5]):
+            srcs.append(str(out / f"img{k}{'.png' if k == 4 else '.jpg'}"))
+            check(cv2.imwrite(srcs[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
+                  f"could not write {srcs[-1]}")
+        argv = ["--model", "yolo8_det", "--ckpt", ckpt, "--src", *srcs]
+        nms_keep.launches = 0                # just before the path
+        t0 = time.perf_counter()
+        got = cli.main([*argv, "--dst", str(out / "drawn")])
+        wall = time.perf_counter() - t0
+        launches = nms_keep.launches         # just after
+        check(launches == len(srcs), f"nms_keep launched {launches} times "
+                                     f"for {len(srcs)} images")
+        for src, r in zip(srcs, got):
+            stem = Path(src).stem
+            check(r["saved"] and Path(r["saved"]).is_file()
+                  and Path(r["saved"]).name.startswith(stem + "@"),
+                  f"{src}: no drawn file ({r['saved']})")
+        was = self._swap_nms_keep(nms_keep_reference)
+        try:
+            plain = cli.main([*argv, "--dst", str(out / "plain")])
+        finally:
+            self._swap_nms_keep(was)
+        for src, a, b in zip(srcs, got, plain):
+            for key in ("classes", "boxes", "scores"):
+                check(np.array_equal(a[key], b[key]),
+                      f"{src}: {key} through nms_keep differ from the plain "
+                      f"route's")
+        n_dets = [len(r["classes"]) for r in got]
+        check(min(n_dets) > 0, f"an image got no detection: {n_dets}")
+
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        cfg, algo_cls, _ = export_from_registry("yolo8_det")
+        algo = algo_cls(cfg, device=self.dev)
+        model = algo.init_variables()
+        model.load_state_dict(CheckPoint.load_pure(ckpt))
+        infer = algo.make_infer_fn()
+        s = algo.input_size
+        laps = {k: [] for k in ("decode", "letterbox", "device", "draw")}
+        for _ in range(reps):
+            for src in srcs:
+                t0 = time.perf_counter()
+                img = read_image(src)
+                t1 = time.perf_counter()
+                canvas, scale, pad = letter_box(img, (s, s))
+                t2 = time.perf_counter()
+                b, sc, c, v = (t.cpu().numpy() for t in infer(
+                    model, torch.from_numpy(canvas[None]).to(self.dev)))
+                t3 = time.perf_counter()
+                boxes = reverse_letter_box(b[0][v[0]], scale, pad,
+                                           img.shape[:2])
+                show_detection_results(img, boxes, sc[0][v[0]], c[0][v[0]],
+                                       algo.class_names, str(out / "timed"),
+                                       Path(src).stem)
+                t4 = time.perf_counter()
+                for k, (a, z) in zip(laps, ((t0, t1), (t1, t2), (t2, t3),
+                                            (t3, t4))):
+                    laps[k].append((z - a) * 1e3)
+        med = {k: float(np.median(v)) for k, v in laps.items()}
+        row = {"images": len(srcs), "nms_launches": launches,
+               "detections": n_dets, "plain_route_equal": True,
+               "cli_wall_s": wall, "ms_per_image": med,
+               "ms_per_image_total": sum(med.values()),
+               "nvidia_smi": nvidia_smi()}
+        emit({"phase": "predict", **row})
+        return launches
+
+    def phase_evaluate(self, ckpt, batch=32):
+        """python -m tpucv_torch.evaluate's main (B=32, conf 0.001: K =
+        4096, the sequential scan) on a COCO-layout root written here (64
+        640x480 JPEGs and one PNG from SyntheticDetectionIndex, one crowd
+        GT), with the sharpened checkpoint; the native COCOeval must build,
+        and on the CLI's eval_results.json its stats and precision arrays
+        equal the numpy engine's within 1e-12. Then the CLI once more with
+        recorders around its own stages (``_recorded_evaluate``), every
+        batch's scan held against the scan on the CPU from the candidates
+        the CLI gave it, and the host loader's rate over the JPEGs with the
+        native decode and with cv2."""
+        import os
+
+        from tpucv_torch import evaluate as cli
+        from tpucv_torch.algorithms.base import DetectionAlgorithm
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.data.coco import COCOIndex
+        from tpucv_torch.decode import yolov8 as decode
+        from tpucv_torch.metrics.coco_map import COCOMeanAP
+        from tpucv_torch.native import imagepipe, load
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        torch = self.torch
+        base = ROOT / "saves" / "chip_smoke" / "evaluate"
+        root = base / "coco"
+        n_img = write_coco_root(root, 64)
+        check(load("cocoeval") is not None,
+              "the native COCOeval library did not build")
+        engine = "native" if imagepipe.available() else "cv2"
+        argv = ["--model", "yolo8_det", "--dataset", "coco", "--ckpt", ckpt,
+                "--batch-size", str(batch)]
+        env_was, cwd = os.environ.get("TPUCV_COCO_ROOT"), os.getcwd()
+        os.environ["TPUCV_COCO_ROOT"] = str(root)
+        os.chdir(base)
+        try:
+            nms_keep.launches = 0
+            t0 = time.perf_counter()
+            stats = cli.main(argv)
+            self.sync()
+            wall = time.perf_counter() - t0
+            launches = nms_keep.launches
+            with open(base / "result" / "eval_results.json") as f:
+                dts = json.load(f)
+            stages, scans, rec_stats = self._recorded_evaluate(
+                cli, argv, DetectionAlgorithm, decode, COCOMeanAP)
+        finally:
+            os.chdir(cwd)
+            if env_was is None:
+                os.environ.pop("TPUCV_COCO_ROOT")
+            else:
+                os.environ["TPUCV_COCO_ROOT"] = env_was
+        check(len(stats) == 12 and all(np.isfinite(v) for v in
+                                       stats.values()), f"stats {stats}")
+        check(rec_stats == stats, "the recorded run's stats differ")
+
+        index = COCOIndex(str(root / "annotations" /
+                              "instances_val2017.json"), str(root / "val2017"))
+        gts = [r for i in range(len(index)) for r in index.eval_gt_records(i)]
+        check(sum(r["iscrowd"] for r in gts) == 1, "not one crowd GT")
+        t0 = time.perf_counter()
+        nat = COCOMeanAP(gts, dts, index.cat_ids).accumulate(use_native=True)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = COCOMeanAP(gts, dts, index.cat_ids).accumulate(use_native=False)
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        arr_err = max(float(np.abs(nat.precision - ref.precision).max()),
+                      float(np.abs(nat.recall - ref.recall).max()))
+        nat_stats, ref_stats = nat.summarize(), ref.summarize()
+        stat_err = max(abs(nat_stats[k] - ref_stats[k]) for k in ref_stats)
+        check(arr_err <= 1e-12 and stat_err <= 1e-12,
+              f"native COCOeval differs from numpy by {arr_err} / {stat_err}")
+        check(all(nat_stats[k] == stats[k] for k in stats),
+              "the CLI's stats are not the native engine's")
+
+        # the scan: every batch the CLI ran, against the CPU's scan
+        check(len(scans) == len(stages["images"]) == -(-n_img // batch),
+              f"{len(scans)} scans for batches of {stages['images']}")
+        kept = []
+        for k, (off, scores, thr, max_det, idx, valid) in enumerate(scans):
+            check(scores.shape[1] == 4096 and int(
+                (scores > 0).sum(1).min()) > max_det,
+                  f"batch {k}: the scan had little work: K "
+                  f"{scores.shape[1]}, {int((scores > 0).sum())} valid")
+            c_idx, c_valid = decode.dispatch_batched_nms(
+                off.cpu(), scores.cpu(), thr, max_det)
+            check(torch.equal(idx.cpu(), c_idx)
+                  and torch.equal(valid.cpu(), c_valid),
+                  f"batch {k}: the scan on the card differs from the scan "
+                  f"on the CPU")
+            kept += valid.sum(1).tolist()
+
+        loop_ms = sum(sum(stages[k]) for k in LOOP_STAGES)
+        full = [j for j, n in enumerate(stages["images"]) if n == batch]
+        check(len(full) == n_img // batch, f"batches {stages['images']}")
+        per_full_batch = {k: float(np.mean([stages[k][j] for j in full]))
+                          for k in LOOP_STAGES}
+        cfg = export_from_registry("yolo8_det")[0]
+        loader = self._jpeg_loader_rates(index, cfg)
+        row = {"images": n_img, "batch": batch, "K": 4096,
+               "decode_engine": engine, "stats": stats,
+               "cli_wall_s": wall, "img_per_s_cli": n_img / wall,
+               "nms_keep_launches": launches,
+               "kept_per_image": [min(kept), float(np.mean(kept)), max(kept)],
+               "recorded_loop_img_per_s": n_img / loop_ms * 1e3,
+               "ms_per_full_batch": per_full_batch, "ms_by_batch": stages,
+               "scan_share_of_loop": sum(stages["scan"]) / loop_ms,
+               "scan_equals_cpu_batches": len(scans),
+               "cocoeval_native_ms": native_ms, "cocoeval_numpy_ms": numpy_ms,
+               "cocoeval_max_abs_err": arr_err,
+               "cocoeval_stat_max_abs_err": stat_err,
+               "detections": len(dts), "loader_jpeg": loader,
+               "nvidia_smi": nvidia_smi()}
+        emit({"phase": "evaluate", **row})
+        return launches
+
+    def _recorded_evaluate(self, cli, argv, algo_cls, decode, coco_cls):
+        """The evaluate CLI's main once more, with recorders put around its
+        own functions and taken away after: each batch's canvas fill
+        (wall), H2D + letterbox + forward + top-k (from the fill's end to
+        the scan's start), the scan (``dispatch_batched_nms``, synced at
+        both edges), D2H and the host's records (to the next batch's fill,
+        or to the loop's end), then COCOeval's accumulate. Returns (stages:
+        each of LOOP_STAGES -> [ms a batch], "images" -> [images a batch],
+        "cocoeval" -> ms; the scans' (inputs, thr, max_det, outputs); the
+        stats)."""
+        sync = self.sync
+        fill, harness = algo_cls._fill_canvases, algo_cls._batched_detections
+        dispatch, accumulate = decode.dispatch_batched_nms, coco_cls.accumulate
+        marks, scans, stages = [], [], {"images": []}
+
+        def fill_rec(obj, index, idxs, *a, **kw):
+            t0 = time.perf_counter()
+            out = fill(obj, index, idxs, *a, **kw)
+            stages["images"].append(len(idxs))
+            marks.append({"fill": (t0, time.perf_counter())})
+            return out
+
+        def dispatch_rec(off, scores, thr, max_det):
+            sync()
+            t0 = time.perf_counter()
+            idx, valid = dispatch(off, scores, thr, max_det)
+            sync()
+            marks[-1]["scan"] = (t0, time.perf_counter())
+            scans.append((off, scores, thr, max_det, idx, valid))
+            return idx, valid
+
+        def harness_rec(*a, **kw):
+            yield from harness(*a, **kw)
+            marks.append({"fill": (time.perf_counter(), None)})
+
+        def accumulate_rec(obj, *a, **kw):
+            t0 = time.perf_counter()
+            out = accumulate(obj, *a, **kw)
+            stages["cocoeval"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        algo_cls._fill_canvases = fill_rec
+        algo_cls._batched_detections = harness_rec
+        decode.dispatch_batched_nms = dispatch_rec
+        coco_cls.accumulate = accumulate_rec
+        try:
+            stats = cli.main(argv)
+        finally:
+            algo_cls._fill_canvases = fill
+            algo_cls._batched_detections = harness
+            decode.dispatch_batched_nms = dispatch
+            coco_cls.accumulate = accumulate
+        for k in LOOP_STAGES:
+            stages[k] = []
+        for m, nxt in zip(marks, marks[1:]):
+            (f0, f1), (s0, s1) = m["fill"], m["scan"]
+            for k, (a, z) in zip(LOOP_STAGES, ((f0, f1), (f1, s0), (s0, s1),
+                                               (s1, nxt["fill"][0]))):
+                stages[k].append((z - a) * 1e3)
+        return stages, scans, stats
+
+    def _jpeg_loader_rates(self, index, cfg, epochs=2):
+        """The trainer's host feed (one thread, as yolo8_det ships) over the
+        evaluate phase's JPEGs: images/s with the native decode and with
+        cv2 (the native library's one-time check turned off)."""
+        from tpucv_torch.data.detection_dataset import DetectionDataset
+        from tpucv_torch.data.loader import Loader
+        from tpucv_torch.native import imagepipe
+
+        t = cfg.train
+        ds = DetectionDataset(
+            index, cfg.dataset.input_size, cfg.dataset.max_num_boxes,
+            train=True, mosaic_prob=t.mosaic_prob,
+            special_aug_ratio=t.special_aug_ratio, epochs=t.epochs,
+            device_aug=t.device_aug)
+        out = {}
+        was = imagepipe._PARITY.get("ok")
+        for engine in ("native", "cv2", "native again"):
+            imagepipe._PARITY["ok"] = engine != "cv2" and bool(was)
+            ld = Loader(ds, 16, shuffle=True, num_workers=0)
+            n, t0 = 0, time.perf_counter()
+            for epoch in range(epochs):
+                ld.set_epoch(epoch)
+                for b in ld:
+                    n += b["images"].shape[0]
+            out[engine] = {"img_per_s": n / (time.perf_counter() - t0),
+                           "images": n}
+        imagepipe._PARITY["ok"] = was
+        out["native_available"] = bool(was)
+        return out
+
+    def phase_eval_map(self, run, reps=3):
+        """trainer.evaluate_map on the run's final state (the final
+        checkpoint loaded back into it; synthetic val index of 16 images at
+        B=16, conf 0.01, so K = 1024: the VOC engine and the COCO
+        cross-summary). yolo8_det ships without an EMA, so the state is
+        handed over with its parameters, class branch sharpened, as its
+        EMA: evaluate_map scores them in a copy of the model with the live
+        BatchNorm statistics. nms_keep's count zeroed just before the call,
+        read just after; the detections equal those of the same call with
+        nms_keep's plain version in its place; the trained weights
+        unchanged; ms a call (median of ``reps``)."""
+        import types
+
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
+
+        torch = self.torch
+        trainer = run["trainer"]
+        state = trainer.state
+        CheckPoint.load(run["final_path"], state)
+        live = {k: v.detach().clone() for k, v in
+                state.model.state_dict().items()}
+        check(all(torch.equal(live[k].cpu(), run["final_sd"][k])
+                  for k in live), "the state is not the run's final state")
+        ema = {n: p.detach().clone() for n, p in state.params.items()}
+        for lv in range(3):
+            ema[f"model.22.cv3.{lv}.2.bias"].zero_()
+            ema[f"model.22.cv3.{lv}.2.weight"].mul_(CLS_GAIN)
+        view = types.SimpleNamespace(model=state.model, ema=ema)
+        harness = trainer.algorithm._batched_detections
+        seen = []
+
+        def recorded(*args, **kw):
+            for item in harness(*args, **kw):
+                seen.append(item)
+                yield item
+
+        trainer.algorithm._batched_detections = recorded
+        try:
+            nms_keep.launches = 0            # just before the path
+            t0 = time.perf_counter()
+            res = trainer.evaluate_map(view)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launches = nms_keep.launches     # just after
+            got, seen[:] = list(seen), []
+            was = self._swap_nms_keep(nms_keep_reference)
+            try:
+                res_plain = trainer.evaluate_map(view)
+            finally:
+                self._swap_nms_keep(was)
+            plain, seen[:] = list(seen), []
+        finally:
+            trainer.algorithm._batched_detections = harness
+        check(launches > 0, "evaluate_map did not launch nms_keep")
+        check(len(got) == len(plain) == len(trainer.val_index),
+              f"{len(got)} images scored")
+        for a, b in zip(got, plain):
+            check(a[0] == b[0] and all(np.array_equal(x, y) for x, y in
+                                       zip(a[1:], b[1:])),
+                  f"image {a[0]}: detections through nms_keep differ from "
+                  f"the plain route's")
+        check(res == res_plain, f"{res} != {res_plain}")
+        check(sum(len(a[3]) for a in got) > 0, "no detection")
+        check(all(torch.equal(v, live[k]) for k, v in
+                  state.model.state_dict().items()),
+              "evaluate_map changed the trained model")
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            trainer.evaluate_map(view)
+            times.append((time.perf_counter() - t0) * 1e3)
+        row = {"images": len(got), "batch": trainer.cfg.train.batch_size,
+               "K": 1024, "result": res, "nms_launches": launches,
+               "detections": [len(a[3]) for a in got],
+               "plain_route_equal": True, "first_call_ms": first_ms,
+               "ms_per_call": float(np.median(times)), "ms_runs": times,
+               "nvidia_smi": nvidia_smi()}
+        emit({"phase": "eval_map", **row})
         return launches
 
     def bound(self, sb, ss, keep, thr):
@@ -1190,6 +1657,10 @@ def main() -> int:
     aug = smoke.phase_augment()
     run = smoke.phase_trainer(aug)
     ckpt_launches = smoke.phase_ckpt_serve(run, imgs)
+    sharp = smoke.sharpened_ckpt(run)
+    predict_launches = smoke.phase_predict(sharp, imgs)
+    evaluate_launches = smoke.phase_evaluate(sharp)
+    eval_map_launches = smoke.phase_eval_map(run)
     smoke.phase_resume(run)       # last: its final save replaces the run's
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
@@ -1199,7 +1670,10 @@ def main() -> int:
         "source": "tpucv_torch/csrc/nms.cu",
         "replaces": "tpucv/ops/pallas_nms.py:28 _nms_kernel",
         "launches": launches,
-        "launches_by_path": {"serve": launches, "ckpt_serve": ckpt_launches},
+        "launches_by_path": {"serve": launches, "ckpt_serve": ckpt_launches,
+                             "predict": predict_launches,
+                             "evaluate (K=4096: the scan)": evaluate_launches,
+                             "eval_map": eval_map_launches},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

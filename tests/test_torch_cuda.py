@@ -527,3 +527,145 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
     _, m1 = step(st, batch)
     _, m2 = step(other, batch)
     assert float(m1["loss"]) == float(m2["loss"])
+
+
+# ------------------------------------------------ predict and evaluate
+def _coco_fuzz(seed, n_img=6, n_cat=4, n_gt=30, n_dt=60):
+    rng = np.random.default_rng(seed)
+    gts, dts = [], []
+    for k in range(n_gt + n_dt):
+        w, h = rng.uniform(2, 120, 2)
+        x, y = rng.uniform(0, 200, 2)
+        rec = {"image_id": int(rng.integers(1, n_img + 1)),
+               "category_id": int(rng.integers(1, n_cat + 1)),
+               "bbox": [x, y, w, h]}
+        if k < n_gt:
+            gts.append({**rec, "area": float(w * h),
+                        "iscrowd": int(rng.random() < 0.15)})
+        else:
+            dts.append({**rec, "score": round(float(rng.random()), 2)})
+    return gts, dts, list(range(1, n_cat + 1))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_native_cocoeval_on_the_card_host(seed):
+    """The COCOeval C++ core builds on the card's host and equals the
+    numpy engine within 1e-12."""
+    from tpucv_torch.metrics.coco_map import COCOMeanAP
+    from tpucv_torch.native import load
+
+    assert load("cocoeval") is not None
+    gts, dts, cats = _coco_fuzz(seed)
+    a = COCOMeanAP(gts, dts, cats).accumulate(use_native=False)
+    b = COCOMeanAP(gts, dts, cats).accumulate(use_native=True)
+    np.testing.assert_allclose(a.precision, b.precision, atol=1e-12, rtol=0)
+    np.testing.assert_allclose(a.recall, b.recall, atol=1e-12, rtol=0)
+
+
+def test_imagepipe_on_the_card_host(tmp_path):
+    """``read_image`` and the eval canvas fill equal cv2 on the card's
+    host: through the native decode where libjpeg is there, through cv2
+    where it is not."""
+    import cv2
+
+    from tpucv_torch.builder import export_from_registry
+    from tpucv_torch.native import imagepipe as ip
+    from tpucv_torch.utils.image_process import read_image
+
+    rng = np.random.default_rng(0)
+    paths, ref = [], []
+    for k, (h, w) in enumerate([(480, 640), (720, 960), (33, 47)]):
+        img = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), np.uint8),
+                               (5, 5), 2)
+        paths.append(str(tmp_path / f"{k}.jpg"))
+        assert cv2.imwrite(paths[-1], img)
+        ref.append(cv2.cvtColor(cv2.imread(paths[-1]), cv2.COLOR_BGR2RGB))
+    for p, r in zip(paths, ref):
+        np.testing.assert_array_equal(read_image(p), r)
+    cfg, algo_cls, _ = export_from_registry("yolo8_det")
+    algo = algo_cls(cfg, device="cuda")
+    canv, hw, oshapes, _ = algo._fill_canvases([(p,) for p in paths],
+                                               range(3), 4, 640)
+    for j, r in enumerate(ref):
+        assert oshapes[j] == r.shape[:2]
+        if max(r.shape[:2]) <= 640:
+            np.testing.assert_array_equal(canv[j, :r.shape[0], :r.shape[1]],
+                                          r)
+    if ip.available():
+        out, nhw, _, ok = ip.decode_to_canvas(paths, 640)
+        assert ok.all() and np.array_equal(out, canv[:3])
+        assert np.array_equal(nhw, hw[:3])
+
+
+def _eval_raw_maps(B=4, conf=0.01):
+    """yolo8_det as shipped (640, bf16) with random weights and a sharpened
+    class branch, on B letterboxed images: raw maps and the decode args."""
+    from tpucv_torch.algorithms.yolov8 import yolo_decode_args
+    from tpucv_torch.builder import export_from_registry
+    from tpucv_torch.ops.preprocess import (host_letterbox_geom,
+                                            letterbox_images)
+
+    cfg, algo_cls, _ = export_from_registry("yolo8_det")
+    algo = algo_cls(cfg, device="cuda")
+    model = algo.init_variables(seed=0)
+    with torch.no_grad():
+        for head in model.model[22].cv3:
+            head[-1].bias.zero_()
+            head[-1].weight.mul_(3000.0)
+    rng = np.random.default_rng(1)
+    imgs = [(rng.integers(0, 256, (480, 640, 3), np.uint8),)
+            for _ in range(B)]
+    canv, hw, _, _ = algo._fill_canvases(imgs, range(B), B, 640)
+    geom, hs = host_letterbox_geom(hw, 640)
+    dev = torch.device("cuda")
+    from tpucv_torch.ops.preprocess import normalize_images
+    with torch.inference_mode():
+        lb, _, _ = letterbox_images(
+            torch.from_numpy(canv).to(dev), torch.from_numpy(hw).to(dev),
+            640, geom=torch.from_numpy(geom).to(dev),
+            scale=torch.from_numpy(hs).to(dev))
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            raw = model(normalize_images(lb, algo.dtype))
+    return raw, yolo_decode_args(cfg, algo.nc, conf)
+
+
+def test_eval_detections_through_nms_keep_equal_the_plain_route(monkeypatch):
+    """In-training mAP's decode (conf 0.01, so K = 1024) on the card: the
+    detections through ``nms_keep`` equal those through its plain version
+    on the same raw maps, and the kernel was launched."""
+    from tpucv_torch.decode.yolov8 import decode_boxes
+    from tpucv_torch.ops import cuda_nms as cn
+
+    raw, kw = _eval_raw_maps()
+    assert kw["pre_nms_topk"] == 1024
+    before = cn.nms_keep.launches
+    with torch.inference_mode():
+        got = decode_boxes(raw, **kw)
+    assert cn.nms_keep.launches == before + 1
+    monkeypatch.setattr(cn, "nms_keep", cn.nms_keep_reference)
+    with torch.inference_mode():
+        ref = decode_boxes(raw, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert int(got[3].sum()) > 0
+
+
+def test_scan_on_the_card_equals_the_cpu():
+    """The evaluate CLI's decode (conf 0.001, K = 4096: the sequential
+    scan, no kernel) on the card and on the CPU, from the same candidates:
+    the same kept indices."""
+    from tpucv_torch.decode.yolov8 import topk_candidates
+    from tpucv_torch.ops.nms import dispatch_batched_nms
+
+    raw, kw = _eval_raw_maps(B=2, conf=0.001)
+    assert kw["pre_nms_topk"] == 4096
+    with torch.inference_mode():
+        boxes, scores, cls = topk_candidates(
+            raw, kw["reg_max"], kw["strides"], kw["conf_threshold"], 4096)
+        off = boxes + cls[..., None].float() * 7680.0
+        card = dispatch_batched_nms(off, scores, kw["iou_threshold"], 300)
+        cpu = dispatch_batched_nms(off.cpu(), scores.cpu(),
+                                   kw["iou_threshold"], 300)
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert torch.equal(card[1].cpu(), cpu[1])
+    assert int(cpu[1].sum()) > 0

@@ -36,9 +36,9 @@ metrics unrounded. Held:
 
 The port alone, at B=8 (8 steps an epoch): 2 epochs in one run equal 1
 epoch, a resume and 1 more epoch exactly; a NaN loss writes
-``-diverged.ckpt`` and raises; ``eval_map``, ``n_model`` > 1 and
-``zero_opt`` are refused by name; ``python -m tpucv_torch.train``'s
-``main`` trains a step; ``python -m tpucv_torch.serve`` serves a request
+``-diverged.ckpt`` and raises; ``n_model`` > 1 and ``zero_opt`` are
+refused by name; ``eval_map`` logs ``map50``, scored on the EMA weights;
+``python -m tpucv_torch.train``'s ``main`` trains a step; ``python -m tpucv_torch.serve`` serves a request
 from a bundle the trainer saved.
 """
 
@@ -298,11 +298,58 @@ def test_nan_loss_saves_diverged_checkpoint_and_raises(tmp_path):
 
 
 @pytest.mark.parametrize("setting,value,item", [
-    ("eval_map", True, "item 4"), ("n_model", 2, "item 14"),
-    ("zero_opt", True, "item 14")])
+    ("n_model", 2, "item 14"), ("zero_opt", True, "item 14")])
 def test_unported_settings_refused_by_name(tmp_path, setting, value, item):
     with pytest.raises(NotImplementedError, match=f"{setting}.*{item}"):
         port_trainer(tmp_path, **{setting: value})
+
+
+def test_eval_map_run_logs_map50(tmp_path):
+    """``train.eval_map``: a 2-step run evaluates the val index after
+    ``evaluate_loop`` and logs the VOC mAP@0.5 (the synthetic index has no
+    COCO GT records) beside the val loss."""
+    t = port_trainer(tmp_path, eval_map=True)
+    t.tb = Recorder()
+    t.train(max_steps=2)
+    assert {"val_loss", "map50"} <= set(t.last_eval)
+    assert 0.0 <= t.last_eval["map50"] <= 1.0
+    assert t.tb.rows["val/map50"] == {2: t.last_eval["map50"]}
+
+
+def test_evaluate_map_scores_the_ema_weights(tmp_path):
+    """With an EMA, ``evaluate_map`` runs a model holding the EMA
+    parameters and the live BatchNorm statistics, equals
+    ``evaluate_on_voc`` on a model loaded that way, and leaves the trained
+    model's weights as they were."""
+    cfg, _, cls = export_from_registry("yolo8_det")
+    shrink(cfg, tmp_path, batch_size=8)
+    cfg.optimizer.ema_decay = 0.5
+    t = cls(cfg, device="cpu")
+    state = t.train(max_steps=2)
+    live = {k: v.clone() for k, v in state.model.state_dict().items()}
+    assert any(not torch.equal(v, live[k]) for k, v in state.ema.items())
+    seen = []
+    harness = t.algorithm._batched_detections
+
+    def spy(model, *args, **kw):
+        seen.append(model)
+        return harness(model, *args, **kw)
+
+    t.algorithm._batched_detections = spy
+    got = t.evaluate_map(state)
+    assert len(seen) == 1 and seen[0] is not state.model
+    scored = seen[0].state_dict()
+    for k, v in live.items():
+        assert torch.equal(scored[k], state.ema.get(k, v)), k
+    assert all(torch.equal(v, live[k])
+               for k, v in state.model.state_dict().items())
+
+    ref_model = t.algorithm.init_variables()
+    ref_model.load_state_dict({**live, **state.ema})
+    res = t.algorithm.evaluate_on_voc(
+        ref_model, t.val_index, batch_size=cfg.train.batch_size,
+        conf_threshold=cfg.train.eval_map_conf, verbose=False)
+    assert got == {"map50": res["mAP"]}
 
 
 def test_default_device_refuses_without_card(tmp_path):

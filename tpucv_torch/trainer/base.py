@@ -6,8 +6,7 @@ initialize_model -> set_optimizer -> set_criterion, ``train()`` owns the
 epoch loop, resume, periodic eval + checkpoint, file log + TensorBoard.
 Deltas from tpucv:
   * one device, no mesh: ``train.n_model > 1`` and ``train.zero_opt`` wait
-    for the port's data parallelism (ROADMAP queue 1 item 14), and
-    ``train.eval_map`` for its evaluation harness (item 4); each is
+    for the port's data parallelism (ROADMAP queue 1 item 14); each is
     refused by name rather than ignored;
   * the train state is built once, in ``set_optimizer``, and a resume
     loads into it in place;
@@ -18,6 +17,7 @@ Deltas from tpucv:
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import time
@@ -63,10 +63,6 @@ def _refuse_unported(cfg) -> None:
         raise NotImplementedError(
             "train.zero_opt: ZeRO-1 sharding of the Adam moments waits for "
             "the port's data parallelism (ROADMAP queue 1 item 14)")
-    if t.eval_map:
-        raise NotImplementedError(
-            "train.eval_map: in-training mAP needs evaluate_on_coco / "
-            "evaluate_on_voc, not ported yet (ROADMAP queue 1 item 4)")
 
 
 class BaseTrainer:
@@ -272,6 +268,8 @@ class BaseTrainer:
                 f"(means over logged steps: {ep_means})")
             if (epoch + 1) % cfg.train.eval_interval == 0:
                 val = self.evaluate_loop(state)
+                if cfg.train.eval_map:
+                    val.update(self.evaluate_map(state))
                 self.last_eval = val
                 self.logger.info(f"eval epoch {epoch}: {val}")
                 if self.tb:
@@ -295,6 +293,35 @@ class BaseTrainer:
             f"{self.cfg.model_name}_{self.cfg.dataset.name}_{tag}.ckpt")
 
     # -------------------------------------------------------------- eval
+    def evaluate_map(self, state: TrainState) -> Dict[str, float]:
+        """In-training detection mAP over the val index through the
+        algorithm's batched harness (``train.eval_map``). COCO-style
+        indices (``eval_gt_records``) give ``{map, map50}`` from COCOeval;
+        others the VOC ``{map50}``. Scores the EMA weights when the state
+        has them, in a copy of the model that keeps its live BatchNorm
+        statistics (tpucv pairs ``ema_params`` with ``batch_stats``); the
+        model being trained is not touched."""
+        index = self.val_index
+        model = state.model
+        if state.ema is not None:
+            model = copy.deepcopy(state.model)
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name in state.ema:
+                        p.copy_(state.ema[name])
+        model.eval()
+        conf = self.cfg.train.eval_map_conf
+        bs = self.cfg.train.batch_size
+        if hasattr(index, "eval_gt_records"):       # COCO protocol
+            stats = self.algorithm.evaluate_on_coco(
+                model, index, batch_size=bs, conf_threshold=conf,
+                result_dir=os.path.join(self.cfg.log.root, "eval"),
+                verbose=False)
+            return {"map": stats["AP"], "map50": stats["AP50"]}
+        res = self.algorithm.evaluate_on_voc(
+            model, index, batch_size=bs, conf_threshold=conf, verbose=False)
+        return {"map50": res["mAP"]}
+
     def evaluate_loop(self, state: TrainState) -> Dict[str, float]:
         """Mean val loss and components (reference yolo8_train.py:113-129)."""
         eval_step = getattr(self, "_eval_step", None)

@@ -42,7 +42,7 @@ def build_detection_indices(cfg, logger=None):
 
 def build_detection_loaders(cfg, logger=None) -> Tuple[Loader, Loader, object]:
     """(train_loader, val_loader, val_index) — the raw val index is what
-    tpucv's in-training mAP harness reads (train.eval_map, not ported)."""
+    the in-training mAP harness reads (``train.eval_map``)."""
     train_idx, val_idx = build_detection_indices(cfg, logger)
     t = cfg.train
     train_ds = DetectionDataset(

@@ -4,16 +4,28 @@ that decode files or resize on the host."""
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 
 
 def read_image(path: str) -> np.ndarray:
-    """Decode an image file to RGB uint8 HWC, EXIF orientation ignored."""
+    """Decode an image file to RGB uint8 HWC, EXIF orientation ignored.
+
+    JPEGs take the native decode (``native/imagepipe.cpp``: libjpeg
+    straight to RGB, bit-identical to cv2's decode and conversion); what
+    it cannot read (PNG, CMYK, corrupt files) and every file when the
+    library is unavailable go through cv2."""
+    path = str(path)
+    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
+        from tpucv_torch.native import imagepipe
+        img = imagepipe.decode_jpeg(path)
+        if img is not None:
+            return img
     import cv2
 
-    img = cv2.imread(str(path), cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+    img = cv2.imread(path, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
     if img is None:
         raise FileNotFoundError(f"could not read image: {path}")
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
