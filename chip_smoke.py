@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive tpucv_torch's paths once on one NVIDIA GPU: the yolo8_det serving
 path, the bench entry point's inference program, the four measurement
-probes, the YOLOv8 training step, the YOLOv8 trainer, and predict,
-evaluate and in-training mAP on the trainer's checkpoint.
+probes, the YOLOv8 training step, the YOLOv8 trainer, predict, evaluate
+and in-training mAP on the trainer's checkpoint, and YOLOv8-seg and
+YOLOv8-pose through their trainers, predict and evaluate.
 
     python3 chip_smoke.py
 
@@ -104,9 +105,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
 16. resume   a new trainer resumes from the epoch-9 checkpoint: step 40
             and weights and Adam's state bit-equal to the file after
             loading, then 4 more steps with a finite loss.
+17. seg_pose_parity  yolo8_seg's and yolo8_pose's forward on the card
+            against the CPU (f32, TF32 off, 640, B=2: within 1e-3 of the
+            largest value), then one train step each (B=2, 128², f32):
+            TAL fg mask and GT rows bit-equal, loss terms within 1e-4
+            relative.
+18. seg_trainer / pose_trainer  python -m tpucv_torch.train's main at each
+            shipped config (640², B=16, M=48 / 32, bf16, synthetic data)
+            for 8 steps, 2 epochs, through evaluate_loop and the saves
+            (their intervals set to 2): losses finite with mask_loss or
+            kpt_loss / kobj_loss, images/s over steps 4-7, the step on a
+            device-resident batch (events) and its kernels (profiler),
+            peak memory.
+19. seg_predict / pose_predict  python -m tpucv_torch.predict's main on
+            the serve images (4 JPEGs, a PNG) with each final checkpoint's
+            class branch sharpened (conf 0.25, K <= 1024): nms_keep's
+            count zeroed just before, read just after; detections, masks
+            and keypoints equal to the same run through nms_keep's plain
+            version; drawn files exist; ms an image split into decode,
+            letterbox, device, masks or keypoints, and draw.
+20. seg_evaluate  python -m tpucv_torch.evaluate --model yolo8_seg on a
+            COCO root written here (each GT box also a polygon; B=32, conf
+            0.001: the scan), then evaluate_mask_ap over it: 12 bbox and
+            12 mask stats, finite, the mask AP's ms by stage.
+21. pose_evaluate  the evaluate CLI on the synthetic pose index (B=16,
+            conf 0.001: the scan): box and OKS stats.
+22. pose_eval_map  trainer.evaluate_map on the pose run (16 images, B=16,
+            conf 0.01: K = 1024): nms_keep's count, detections equal to
+            the plain route's, ms a call.
 
-The line before the last holds {"kernels": [...]} (nms_keep, add_one,
-conv3x3); the last line is
+The line before the last holds {"kernels": [...]} (nms_keep, with its
+launches on every path that runs it, add_one, conv3x3); the last line is
 {"ok": true, "device": {...}}. The whole output is also written to
 chiprun_out/chip_smoke.log. Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -230,11 +259,74 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+class StageRecorder:
+    """Records (label, start, end) on the host clock around callables,
+    the device synchronised before each end: ``wrap`` puts the recording
+    in place of a module's or a class's attribute until ``restore``,
+    ``wrapped`` returns a recording copy of one callable."""
+
+    def __init__(self, sync):
+        self.sync = sync
+        self.events = []
+        self._undo = []
+
+    def wrapped(self, fn, label):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.sync()
+            self.events.append((label, t0, time.perf_counter()))
+            return out
+        return run
+
+    def wrap(self, owner, name, label):
+        own = name in vars(owner)
+        fn = getattr(owner, name)
+        self._undo.append((owner, name, fn if own else None))
+        setattr(owner, name, self.wrapped(fn, label))
+
+    def restore(self):
+        for owner, name, fn in reversed(self._undo):
+            if fn is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
+        self._undo.clear()
+
+
+def flat_outputs(out):
+    """The tensors of a head's output, nested tuples flattened in order."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in flat_outputs(o)]
+    return [out]
+
+
+def family_dataset(name, cfg, n, seed):
+    """The synthetic set a seg or pose trainer falls back to, ``n`` images
+    at the config's size, and its collate."""
+    from tpucv_torch.data.detection_dataset import SyntheticDetectionIndex
+    from tpucv_torch.data.instance_seg_dataset import (InstanceSegDataset,
+                                                       instance_seg_collate)
+    from tpucv_torch.data.pose_dataset import (PoseDataset,
+                                               SyntheticPoseIndex,
+                                               pose_collate)
+
+    s, m = cfg.dataset.input_size, cfg.dataset.max_num_boxes
+    if name == "yolo8_seg":
+        return {"ds": InstanceSegDataset(SyntheticDetectionIndex(
+            n, s, cfg.num_classes, seed=seed), s, m),
+            "collate": instance_seg_collate}
+    nk = cfg.arch.kpt_shape[0]
+    return {"ds": PoseDataset(SyntheticPoseIndex(n, s, nk, seed=seed), s, m,
+                              nk=nk), "collate": pose_collate}
+
+
 def write_coco_root(root: Path, n: int) -> int:
     """A COCO-layout root (``val2017/``, ``annotations/instances_val2017
     .json``): ``n`` 640x480 JPEGs and one PNG cut from
     SyntheticDetectionIndex's 640x640 images, their boxes as GTs, the first
-    one a crowd GT. Returns the image count."""
+    one a crowd GT, each box also its 4-point ``segmentation`` (read only
+    by an index with ``keep_polys``). Returns the image count."""
     import cv2
 
     from tpucv_torch.configs.dataset_cfg import COCO80_TO_COCO91, COCO_CLASSES
@@ -260,7 +352,8 @@ def write_coco_root(root: Path, n: int) -> int:
                          "category_id": COCO80_TO_COCO91[lab],
                          "bbox": [x1, y1, x2 - x1, y2 - y1],
                          "area": (x2 - x1) * (y2 - y1),
-                         "iscrowd": int(not anns)})
+                         "iscrowd": int(not anns),
+                         "segmentation": [[x1, y1, x2, y1, x2, y2, x1, y2]]})
     with open(root / "annotations" / "instances_val2017.json", "w") as f:
         json.dump({"images": images, "annotations": anns, "categories": [
             {"id": c, "name": COCO_CLASSES[k]}
@@ -900,6 +993,447 @@ class Smoke:
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         return us / n / 1e3 if us > 0 else None
+
+    # ------------------------------------------------ YOLOv8-seg and -pose
+    def phase_seg_pose_parity(self):
+        """Both families on the card against the CPU: the forward (f32,
+        TF32 off, 640, B=2, random weights from torch.Generator seed 0;
+        every output within 1e-3 of its largest value), then one train
+        step each (B=2, 128², f32, the family's own synthetic batch): the
+        TAL fg mask and GT rows of the first forward bit-equal, the loss
+        and each term within 1e-4 relative."""
+        import copy
+
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.losses.yolov8 import yolov8_loss
+        from tpucv_torch.train.state import (TrainState, forward,
+                                             make_train_step)
+
+        torch = self.torch
+        cpu = torch.device("cpu")
+        row = {}
+        for name in ("yolo8_seg", "yolo8_pose"):
+            cfg, algo_cls, trainer_cls = export_from_registry(name)
+            algo = algo_cls(cfg, device=cpu)
+            model = algo.build_model().reset_parameters(
+                torch.Generator().manual_seed(0)).eval()
+            x = torch.from_numpy(np.random.default_rng(3).random(
+                (2, 640, 640, 3), dtype=np.float32))
+            with torch.inference_mode():
+                ref = flat_outputs(model(x))
+                got = flat_outputs(copy.deepcopy(model).to(
+                    self.dev, memory_format=torch.channels_last)(
+                        x.to(self.dev)))
+            rel = max(float((g.cpu() - c).abs().max() / c.abs().max())
+                      for g, c in zip(got, ref))
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"{name}: non-finite outputs on the card")
+            check(rel < 1e-3, f"{name}: the f32 forward on the card differs "
+                              f"from the CPU by {rel} of the largest value")
+
+            cfg.dataset.input_size, cfg.train.batch_size = 128, 2
+            ds = family_dataset(name, cfg, n=2, seed=3)
+            batch = {k: torch.from_numpy(v) for k, v in
+                     ds["collate"]([ds["ds"][0], ds["ds"][1]]).items()}
+            batch["images"] = batch["images"].float() / 255.0
+            loss_fn = algo.build_loss()
+            runs = []
+            for dev in (cpu, self.dev):
+                m = copy.deepcopy(model).to(
+                    dev, memory_format=torch.channels_last)
+                b = {k: v.to(dev) for k, v in batch.items()}
+                with torch.no_grad():
+                    raw = forward(copy.deepcopy(m).train(), b["images"],
+                                  False)
+                    _, _, aux = yolov8_loss(
+                        raw[0], b["gt_labels"], b["gt_bboxes"], b["gt_mask"],
+                        nc=algo.nc, return_aux=True)
+                state = TrainState.create(m, 1e-3, use_ema=True)
+                step = make_train_step(
+                    loss_fn, device=dev, ema_decay=0.9999,
+                    loss_batch_scaled=trainer_cls.LOSS_BATCH_SCALED,
+                    mixed_precision=False)
+                _, sm = step(state, b)
+                runs.append({"fg": aux["fg"].cpu(),
+                             "gt_idx": aux["gt_idx"].cpu(),
+                             "step": {k: float(v) for k, v in sm.items()}})
+            c, g = runs
+            check(torch.equal(c["fg"], g["fg"])
+                  and torch.equal(c["gt_idx"], g["gt_idx"]),
+                  f"{name}: the TAL assignment differs between card and CPU")
+            terms = {k: abs(g["step"][k] - v) / max(abs(v), 1e-12)
+                     for k, v in c["step"].items()}
+            check(max(terms.values()) <= 1e-4,
+                  f"{name}: loss terms card {g['step']} against CPU "
+                  f"{c['step']}")
+            row[name] = {"forward_max_rel_err": rel,
+                         "fg": int(c["fg"].sum()), "tal_bit_equal": True,
+                         "loss_cpu": c["step"], "loss_card": g["step"],
+                         "loss_max_rel_err": max(terms.values())}
+        emit({"phase": "seg_pose_parity", **row})
+
+    def phase_family_trainer(self, name, steps=8, window=(4, 7)):
+        """``python -m tpucv_torch.train --model <name>``'s main at the
+        shipped config (640², B=16, bf16, no device augmentation, the
+        synthetic fallback: 4 batches an epoch) for ``steps`` steps, 2
+        epochs, with evaluate_loop and the saves at epoch 2 (the
+        intervals set to 2 for the smoke). The losses, all finite; images/s
+        over the ``window`` steps (host clock); the step on a
+        device-resident batch (CUDA events) and its kernel time (profiler);
+        peak memory."""
+        import os
+
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.probes.common import timed
+        from tpucv_torch.train import __main__ as cli
+
+        torch = self.torch
+        out = ROOT / "saves" / "chip_smoke" / name
+        seen = {}
+
+        def registry(model_name):
+            cfg, algo, cls = export_from_registry(model_name)
+            t, d = cfg.train, cfg.dataset
+            check(d.input_size == 640 and t.batch_size == 16
+                  and t.mixed_precision and cfg.arch.model_type == "n"
+                  and d.max_num_boxes == {"yolo8_seg": 48,
+                                          "yolo8_pose": 32}[model_name],
+                  f"{model_name}'s config is not as shipped")
+            t.save_path, cfg.log.root = str(out / "saves"), str(out / "log")
+            cfg.log.tensorboard_on = False
+            cfg.log.print_interval = 1
+            t.eval_interval = t.save_interval = 2
+
+            class Recorded(cls):
+                def _setup_logging(self):
+                    super()._setup_logging()
+                    self.tb = seen["rec"] = Recorder()
+                    self.train_loader = seen["feed"] = TimedLoader(
+                        self.train_loader)
+                    seen["trainer"] = self
+
+            return cfg, algo, Recorded
+
+        was = cli.export_from_registry
+        cli.export_from_registry = registry
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            state = cli.main(["--model", name, "--max-steps", str(steps)])
+        finally:
+            cli.export_from_registry = was
+        self.sync()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        trainer, rec, feed = seen["trainer"], seen["rec"], seen["feed"]
+        check(state.step == steps, f"{name}: took {state.step} steps")
+        terms = {"yolo8_seg": ("mask_loss",),
+                 "yolo8_pose": ("kpt_loss", "kobj_loss")}[name]
+        losses = {k: rec.rows[f"train/{k}"] for k in
+                  ("loss", "box_loss", "cls_loss", "dfl_loss", *terms)}
+        check(all(np.isfinite(v) for r in losses.values() for v in r.values())
+              and len(losses["loss"]) == steps, f"{name}: non-finite losses")
+        val = trainer.last_eval
+        check(all(np.isfinite(v) for v in val.values()) and
+              f"val_{terms[0]}" in val, f"{name}: evaluate_loop gave {val}")
+        saves = sorted(os.listdir(out / "saves"))
+        check(saves == [f"{name}_coco_epoch-1.ckpt", f"{name}_coco_final.ckpt"],
+              f"{name}: saved {saves}")
+        a, b = window
+        step_wall_ms = (feed.handed[b] - feed.handed[a]) / (b - a) * 1e3
+
+        step = trainer.build_train_step()
+        batch = trainer.device_batch(next(iter(feed.loader)), train=True)
+        step_ms = timed(lambda: step(state, batch), 10, self.dev)
+        prof_ms = self._kernel_ms_a_step(step, state, batch, 5)
+        emit({"phase": f"{name.split('_')[1]}_trainer",
+              "config": f"{name} as shipped: YOLOv8n, 640, B=16, "
+                        f"M={trainer.cfg.dataset.max_num_boxes}, bf16, "
+                        f"no device augmentation, synthetic data",
+              "steps": steps, "epochs_run": 2, "train_s": train_s,
+              "loss_logged": losses, "val": val, "saves": saves,
+              "window_steps": list(window), "step_wall_ms": step_wall_ms,
+              "img_per_s": 16 / step_wall_ms * 1e3,
+              "step_ms_device_resident": step_ms,
+              "step_kernel_ms_profiler": prof_ms, "peak_mem_bytes": peak,
+              "nvidia_smi": nvidia_smi()})
+        return {"trainer": trainer,
+                "final_path": trainer._ckpt_path(trainer.cfg.train.epochs - 1,
+                                                 final=True)}
+
+    def family_sharpened(self, name, run):
+        """The run's final weights with the class branch sharpened (as
+        ``sharpened_ckpt``), saved with save_pure beside them."""
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+
+        cfg, algo_cls, _ = export_from_registry(name)
+        model = algo_cls(cfg, device=self.dev).init_variables(seed=1)
+        model.load_state_dict(CheckPoint.load_pure(run["final_path"]))
+        sharpen_(model)
+        return CheckPoint.save_pure(
+            model, str(ROOT / "saves" / "chip_smoke" / name /
+                       "sharpened.ckpt"))
+
+    def phase_family_predict(self, name, ckpt, imgs, reps=5):
+        """``python -m tpucv_torch.predict``'s main on the smoke's 4 JPEGs
+        and a PNG with the sharpened checkpoint (conf 0.25, K <= 1024):
+        nms_keep's count zeroed just before, read just after; the drawn
+        files exist; detections, masks and keypoints equal to the same run
+        through nms_keep's plain version; then ms an image split into
+        decode, letterbox, device (H2D, forward, decode, NMS), masks or
+        keypoints (D2H, the masks' product, crop, upsample and overlay, or
+        the keypoints' mapping and dots) and draw (median of ``reps``)."""
+        import cv2
+
+        from tpucv_torch import predict as cli
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
+
+        torch = self.torch
+        family = name.split("_")[1]
+        extra = {"seg": "masks", "pose": "keypoints"}[family]
+        out = ROOT / "saves" / "chip_smoke" / name / "predict"
+        out.mkdir(parents=True, exist_ok=True)
+        srcs = []
+        for k, img in enumerate(imgs[:5]):
+            srcs.append(str(out / f"img{k}{'.png' if k == 4 else '.jpg'}"))
+            check(cv2.imwrite(srcs[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
+                  f"could not write {srcs[-1]}")
+        argv = ["--model", name, "--ckpt", ckpt, "--src", *srcs]
+        nms_keep.launches = 0                # just before the path
+        t0 = time.perf_counter()
+        got = cli.main([*argv, "--dst", str(out / "drawn")])
+        wall = time.perf_counter() - t0
+        launches = nms_keep.launches         # just after
+        check(launches == len(srcs), f"{name}: nms_keep launched {launches} "
+                                     f"times for {len(srcs)} images")
+        for src, r in zip(srcs, got):
+            check(r["saved"] and Path(r["saved"]).is_file()
+                  and Path(r["saved"]).name.startswith(
+                      f"{Path(src).stem}_{family}@"),
+                  f"{src}: no drawn file ({r['saved']})")
+        was = self._swap_nms_keep(nms_keep_reference)
+        try:
+            plain = cli.main([*argv, "--dst", str(out / "plain")])
+        finally:
+            self._swap_nms_keep(was)
+        for src, a, b in zip(srcs, got, plain):
+            for key in ("classes", "boxes", "scores", extra):
+                check(np.array_equal(a[key], b[key]),
+                      f"{src}: {key} through nms_keep differ from the plain "
+                      f"route's")
+        n_dets = [len(r["classes"]) for r in got]
+        check(min(n_dets) > 0, f"{name}: an image got no detection: {n_dets}")
+        check(all(r[extra].shape[0] == n for r, n in zip(got, n_dets)),
+              f"{name}: {extra} do not match the detections")
+
+        cfg, algo_cls, _ = export_from_registry(name)
+        algo = algo_cls(cfg, device=self.dev)
+        model = algo.init_variables()
+        model.load_state_dict(CheckPoint.load_pure(ckpt))
+        infer = algo.make_predict_infer_fn()
+        mod = sys.modules[type(algo).__module__]
+        rec = StageRecorder(self.sync)
+        for attr, label in (("read_image", "decode"),
+                            ("letter_box", "letterbox"),
+                            ("show_detection_results", "draw")):
+            rec.wrap(mod, attr, label)
+        laps = {k: [] for k in ("decode", "letterbox", "device", extra,
+                                "draw")}
+        try:
+            timed_infer = rec.wrapped(infer, "device")
+            for _ in range(reps):
+                for src in srcs:
+                    rec.events.clear()
+                    algo.predict(model, src, infer_fn=timed_infer,
+                                 save_dir=str(out / "timed"))
+                    ev = {k: (a, z) for k, a, z in rec.events}
+                    for k in ("decode", "letterbox", "device", "draw"):
+                        laps[k].append((ev[k][1] - ev[k][0]) * 1e3)
+                    laps[extra].append((ev["draw"][0] - ev["device"][1])
+                                       * 1e3)
+        finally:
+            rec.restore()
+        med = {k: float(np.median(v)) for k, v in laps.items()}
+        emit({"phase": f"{family}_predict", "images": len(srcs),
+              "nms_launches": launches, "detections": n_dets,
+              "plain_route_equal": True, "cli_wall_s": wall,
+              "ms_per_image": med, "ms_per_image_total": sum(med.values()),
+              "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_seg_evaluate(self, ckpt, batch=32):
+        """``python -m tpucv_torch.evaluate --model yolo8_seg``'s main on a
+        COCO-layout root written here (64 640x480 JPEGs and a PNG, each GT
+        box also a 4-point polygon; B=32, conf 0.001: K = 4096, the scan),
+        bbox stats; then ``evaluate_mask_ap`` over the same root with its
+        polygons (B=8, conf 0.001), the 12 mask stats finite, with ms of
+        each stage: the host letterbox and GT rasterising, the device
+        (forward, decode, scan), the masks (product, crop, upsample,
+        threshold, D2H) and the mask COCOeval. nms_keep's count is read
+        over both and must be 0 (the scan)."""
+        import os
+
+        from tpucv_torch import evaluate as cli
+        from tpucv_torch.algorithms import yolov8_seg as seg_mod
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.data.coco import COCOIndex
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        base = ROOT / "saves" / "chip_smoke" / "yolo8_seg" / "evaluate"
+        root = base / "coco"
+        n_img = write_coco_root(root, 64)
+        env_was, cwd = os.environ.get("TPUCV_COCO_ROOT"), os.getcwd()
+        os.environ["TPUCV_COCO_ROOT"] = str(root)
+        os.chdir(base)
+        nms_keep.launches = 0                # just before the paths
+        try:
+            t0 = time.perf_counter()
+            box_stats = cli.main(["--model", "yolo8_seg", "--dataset", "coco",
+                                  "--ckpt", ckpt, "--batch-size", str(batch)])
+            cli_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            if env_was is None:
+                os.environ.pop("TPUCV_COCO_ROOT")
+            else:
+                os.environ["TPUCV_COCO_ROOT"] = env_was
+        check(len(box_stats) == 12 and all(np.isfinite(v) for v in
+                                           box_stats.values()),
+              f"bbox stats {box_stats}")
+
+        cfg, algo_cls, _ = export_from_registry("yolo8_seg")
+        algo = algo_cls(cfg, device=self.dev)
+        model = algo.init_variables()
+        model.load_state_dict(CheckPoint.load_pure(ckpt))
+        index = COCOIndex(str(root / "annotations" / "instances_val2017.json"),
+                          str(root / "val2017"), keep_polys=True)
+        check(index.polygons(0, 0) is not None, "no polygons in the index")
+        rec = StageRecorder(self.sync)
+        rec.wrap(seg_mod, "letter_box", "letterbox")
+        rec.wrap(seg_mod.YOLOv8Seg, "_masks", "masks")
+        rec.wrap(seg_mod.COCOMaskAP, "accumulate", "cocoeval")
+        make_infer = algo.make_seg_infer_fn
+        algo.make_seg_infer_fn = lambda conf=None: rec.wrapped(
+            make_infer(conf), "device")
+        try:
+            t0 = time.perf_counter()
+            mask_stats = algo.evaluate_mask_ap(model, index, verbose=False)
+            mask_s = time.perf_counter() - t0
+        finally:
+            rec.restore()
+            del algo.make_seg_infer_fn
+        launches = nms_keep.launches         # just after
+        check(launches == 0, f"nms_keep launched {launches} times at K=4096")
+        check(len(mask_stats) == 12 and all(np.isfinite(v) for v in
+                                            mask_stats.values()),
+              f"mask stats {mask_stats}")
+        ms = {}
+        for k, a, z in rec.events:
+            ms[k] = ms.get(k, 0.0) + (z - a) * 1e3
+        emit({"phase": "seg_evaluate", "images": n_img,
+              "bbox_stats": box_stats, "evaluate_cli_s": cli_s,
+              "evaluate_cli_img_per_s": n_img / cli_s,
+              "mask_stats": mask_stats, "mask_ap_s": mask_s,
+              "mask_ap_ms_by_stage": ms,
+              "mask_ap_ms_other": mask_s * 1e3 - sum(ms.values()),
+              "nms_launches": launches, "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_pose_evaluate(self, ckpt, run, batch=16, reps=3):
+        """``python -m tpucv_torch.evaluate --model yolo8_pose``'s main on
+        the synthetic pose index (no person_keypoints on the machine; B=16,
+        conf 0.001: K = 4096, the scan): box and OKS stats, nms_keep's
+        count 0. Then ``trainer.evaluate_map`` on the pose run's final
+        state with the sharpened weights handed over as its EMA (16
+        synthetic val images, B=16, conf 0.01: K = 1024): nms_keep's count
+        zeroed just before, read just after, the detections equal to the
+        same call through nms_keep's plain version, ms a call."""
+        import os
+        import types
+
+        from tpucv_torch import evaluate as cli
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
+
+        base = ROOT / "saves" / "chip_smoke" / "yolo8_pose" / "evaluate"
+        base.mkdir(parents=True, exist_ok=True)
+        cwd = os.getcwd()
+        os.chdir(base)
+        nms_keep.launches = 0                # just before the path
+        try:
+            t0 = time.perf_counter()
+            stats = cli.main(["--model", "yolo8_pose", "--ckpt", ckpt,
+                              "--batch-size", str(batch)])
+            cli_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        eval_launches = nms_keep.launches    # just after
+        check(eval_launches == 0, f"nms_keep launched {eval_launches} times "
+                                  f"at K=4096")
+        check(len(stats) == 22 and all(np.isfinite(v) for v in
+                                       stats.values()), f"pose stats {stats}")
+        emit({"phase": "pose_evaluate", "images": 16, "stats": stats,
+              "cli_s": cli_s, "img_per_s": 16 / cli_s,
+              "nms_launches": eval_launches, "nvidia_smi": nvidia_smi()})
+
+        trainer = run["trainer"]
+        state = trainer.state
+        sharp = CheckPoint.load_pure(ckpt)
+        ema = {n: sharp[n].to(self.dev) for n in state.params}
+        view = types.SimpleNamespace(model=state.model, ema=ema)
+        algo = trainer.algorithm
+        harness = algo._batched_pose_detections
+        seen = []
+
+        def recorded(*args, **kw):
+            for item in harness(*args, **kw):
+                seen.append(item)
+                yield item
+
+        algo._batched_pose_detections = recorded
+        try:
+            nms_keep.launches = 0            # just before the path
+            t0 = time.perf_counter()
+            res = trainer.evaluate_map(view)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launches = nms_keep.launches     # just after
+            got, seen[:] = list(seen), []
+            was = self._swap_nms_keep(nms_keep_reference)
+            try:
+                res_plain = trainer.evaluate_map(view)
+            finally:
+                self._swap_nms_keep(was)
+            plain, seen[:] = list(seen), []
+            call_ms = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                trainer.evaluate_map(view)
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+                seen[:] = []
+        finally:
+            del algo._batched_pose_detections
+        check(launches == 1, f"evaluate_map launched nms_keep {launches} "
+                             f"times for one batch of 16")
+        check(len(got) == len(plain) == len(trainer.val_index),
+              f"{len(got)} images scored")
+        for a, b in zip(got, plain):
+            check(a[0] == b[0] and all(np.array_equal(x, y) for x, y in
+                                       zip(a[1:], b[1:])),
+                  f"image {a[0]}: detections through nms_keep differ from "
+                  f"the plain route's")
+        check(res == res_plain and all(np.isfinite(v) for v in res.values()),
+              f"evaluate_map {res} against the plain route's {res_plain}")
+        emit({"phase": "pose_eval_map", "images": len(got), "result": res,
+              "detections": sum(len(a[1]) for a in got),
+              "nms_launches": launches, "plain_route_equal": True,
+              "first_call_ms": first_ms,
+              "ms_per_call_median": float(np.median(call_ms)),
+              "nvidia_smi": nvidia_smi()})
+        return eval_launches, launches
 
     def phase_resume(self, run):
         """A new trainer resumes from the epoch-9 checkpoint
@@ -1661,7 +2195,17 @@ def main() -> int:
     predict_launches = smoke.phase_predict(sharp, imgs)
     evaluate_launches = smoke.phase_evaluate(sharp)
     eval_map_launches = smoke.phase_eval_map(run)
-    smoke.phase_resume(run)       # last: its final save replaces the run's
+    smoke.phase_resume(run)       # its final save replaces the run's
+    smoke.phase_seg_pose_parity()
+    fam = {}
+    for name in ("yolo8_seg", "yolo8_pose"):
+        fam_run = smoke.phase_family_trainer(name)
+        sharp_ckpt = smoke.family_sharpened(name, fam_run)
+        fam[name] = (fam_run, sharp_ckpt,
+                     smoke.phase_family_predict(name, sharp_ckpt, imgs))
+    seg_eval_launches = smoke.phase_seg_evaluate(fam["yolo8_seg"][1])
+    pose_eval_launches, pose_map_launches = smoke.phase_pose_evaluate(
+        fam["yolo8_pose"][1], fam["yolo8_pose"][0])
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
     print(nvidia_smi(), flush=True)
@@ -1673,7 +2217,14 @@ def main() -> int:
         "launches_by_path": {"serve": launches, "ckpt_serve": ckpt_launches,
                              "predict": predict_launches,
                              "evaluate (K=4096: the scan)": evaluate_launches,
-                             "eval_map": eval_map_launches},
+                             "eval_map": eval_map_launches,
+                             "seg_predict": fam["yolo8_seg"][2],
+                             "pose_predict": fam["yolo8_pose"][2],
+                             "pose_eval_map": pose_map_launches,
+                             "seg_evaluate (K=4096: the scan)":
+                                 seg_eval_launches,
+                             "pose_evaluate (K=4096: the scan)":
+                                 pose_eval_launches},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

@@ -669,3 +669,101 @@ def test_scan_on_the_card_equals_the_cpu():
     assert torch.equal(card[0].cpu(), cpu[0])
     assert torch.equal(card[1].cpu(), cpu[1])
     assert int(cpu[1].sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# YOLOv8-seg and YOLOv8-pose on the card: their forward and mask assembly
+# against the CPU, and their decodes through nms_keep against its plain
+# version.
+
+@pytest.mark.parametrize("head,nc", [("segment", 80), ("pose", 1)])
+def test_seg_pose_forward_on_the_card_equals_the_cpu(head, nc, no_tf32):
+    """f32 (TF32 off), B=2 at 160: every output within 1e-3 of its
+    largest value, the bound of chip_smoke's forward_f32 phase."""
+    from tpucv_torch.models.yolov8 import Yolo8
+
+    model = Yolo8("n", nc=nc, head=head).reset_parameters(
+        torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(np.random.default_rng(3).random(
+        (2, 160, 160, 3), dtype=np.float32))
+    with torch.inference_mode():
+        cpu = model(x)
+        card = copy.deepcopy(model).cuda().to(
+            memory_format=torch.channels_last)(x.cuda())
+    flat = lambda out: [t for o in out for t in (  # noqa: E731
+        o if isinstance(o, tuple) else (o,))]
+    for g, c in zip(flat(card), flat(cpu)):
+        assert g.shape == c.shape and bool(torch.isfinite(g).all())
+        assert float((g.cpu() - c).abs().max() / c.abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("how", ["crop", "upsample", "native_down"])
+def test_process_mask_on_the_card_equals_the_cpu(how, no_tf32):
+    from tpucv_torch.ops import masks
+
+    rng = np.random.default_rng(4)
+    protos = torch.from_numpy(rng.normal(0, 1, (160, 160, 32))
+                              .astype(np.float32))
+    coefs = torch.from_numpy(rng.normal(0, 0.3, (40, 32)).astype(np.float32))
+    xy = rng.uniform(0, 400, (40, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(8, 240, (40, 2))], -1).astype(np.float32))
+
+    def run(dev):
+        args = [t.to(dev) for t in (protos, coefs, boxes)]
+        if how == "native_down":
+            return masks.process_mask_native(*args, (120, 100))
+        return masks.process_mask(*args, (640, 640),
+                                  upsample=how == "upsample")
+
+    card, cpu = run("cuda").cpu(), run("cpu")
+    assert card.shape == cpu.shape
+    assert float((card - cpu).abs().max()) <= 1e-5
+
+
+def _head_raw(head, S=640, B=2, seed=5):
+    rng = np.random.default_rng(seed)
+    nc, extra = (80, 32) if head == "segment" else (1, 51)
+    det, other = [], []
+    for s in (8, 16, 32):
+        m = rng.normal(0, 2.0, (B, S // s, S // s, 64 + nc))
+        m[..., 64:] -= 3.0
+        det.append(torch.from_numpy(m.astype(np.float32)).cuda())
+        other.append(torch.from_numpy(rng.normal(
+            0, 1, (B, S // s, S // s, extra)).astype(np.float32)).cuda())
+    if head == "segment":
+        protos = torch.from_numpy(rng.normal(0, 1, (B, S // 4, S // 4, 32))
+                                  .astype(np.float32)).cuda()
+        return (det, other, protos), nc
+    return (det, other), nc
+
+
+@pytest.mark.parametrize("head", ["segment", "pose"])
+def test_seg_pose_decode_through_nms_keep_equal_the_plain_route(head,
+                                                                monkeypatch):
+    """decode_seg / decode_pose at predict's K <= 1024 on the card: through
+    ``nms_keep`` (one launch) and through its plain version, equal outputs
+    and equal anchor indices."""
+    from tpucv_torch.decode import yolov8 as dec
+    from tpucv_torch.decode.yolov8_pose import decode_pose
+    from tpucv_torch.decode.yolov8_seg import decode_seg
+    from tpucv_torch.ops import cuda_nms as cn
+
+    raw, nc = _head_raw(head)
+    fn = decode_seg if head == "segment" else decode_pose
+    kw = dict(nc=nc, pre_nms_topk=1024)
+
+    def run():
+        with torch.inference_mode():
+            return fn(raw, **kw), dec.decode_boxes(
+                raw[0], nc=nc, pre_nms_topk=1024, return_idx=True)[4]
+
+    before = cn.nms_keep.launches
+    got, got_idx = run()
+    assert cn.nms_keep.launches == before + 2      # decode, then its indices
+    monkeypatch.setattr(cn, "nms_keep", cn.nms_keep_reference)
+    ref, ref_idx = run()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert torch.equal(got_idx, ref_idx)
+    assert int(got[3].sum()) > 0

@@ -2,3 +2,5 @@
 package registers them."""
 
 from tpucv_torch.algorithms.yolov8 import YOLOv8  # noqa: F401
+from tpucv_torch.algorithms.yolov8_pose import YOLOv8Pose  # noqa: F401
+from tpucv_torch.algorithms.yolov8_seg import YOLOv8Seg  # noqa: F401

@@ -53,6 +53,12 @@ class DetectionAlgorithm:
     def make_infer_fn(self, conf_threshold: Optional[float] = None):
         raise NotImplementedError
 
+    def make_predict_infer_fn(self, conf_threshold: Optional[float] = None):
+        """The infer fn the predict CLI hands to ``predict``: the
+        boxes-only one here; the segment and pose families return their
+        masks' and keypoints' outputs as well."""
+        return self.make_infer_fn(conf_threshold)
+
     def init_variables(self, seed: int = 0) -> nn.Module:
         """The model with random weights drawn from ``torch.Generator``
         seeded with ``seed``, in eval mode on the algorithm's device

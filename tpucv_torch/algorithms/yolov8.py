@@ -1,5 +1,6 @@
 """YOLOv8 algorithm façade (counterpart of ``tpucv/algorithms/yolov8.py``):
-model and loss factories and the batched inference function."""
+model and loss factories and the batched inference function, whose
+shape the segment and pose families share (``yolo_infer_fn``)."""
 
 from __future__ import annotations
 
@@ -28,6 +29,25 @@ def yolo_decode_args(cfg, nc: int, conf_threshold: Optional[float]) -> dict:
                 max_det=d.max_det, pre_nms_topk=topk)
 
 
+def yolo_infer_fn(algo, decode, kw: dict, n_out: Optional[int] = None):
+    """``infer(model, uint8 NHWC batch)``: normalise, the forward under
+    bf16 autocast when the algorithm's mixed precision is on, then
+    ``decode(raw, **kw)`` outside autocast (it would lift the DFL softmax
+    to f32), its first ``n_out`` outputs when given."""
+    dtype, amp = algo.dtype, algo.mixed_precision
+    dev_type = algo.device.type
+
+    @torch.inference_mode()
+    def infer(model, images_u8):
+        x = normalize_images(images_u8, dtype)
+        with torch.autocast(dev_type, dtype=torch.bfloat16, enabled=amp):
+            raw = model(x)
+        out = decode(raw, **kw)
+        return out if n_out is None else out[:n_out]
+
+    return infer
+
+
 @model_registry("yolo8_det")
 class YOLOv8(DetectionAlgorithm):
     def __init__(self, cfg, device="cuda"):
@@ -53,16 +73,6 @@ class YOLOv8(DetectionAlgorithm):
         return loss_fn
 
     def make_infer_fn(self, conf_threshold: Optional[float] = None):
-        kw = yolo_decode_args(self.cfg, self.nc, conf_threshold)
-        dtype, amp = self.dtype, self.mixed_precision
-        dev_type = self.device.type
-
-        @torch.inference_mode()
-        def infer(model, images_u8):
-            x = normalize_images(images_u8, dtype)
-            with torch.autocast(dev_type, dtype=torch.bfloat16, enabled=amp):
-                raw = model(x)
-            # decode outside autocast: it would lift the DFL softmax to f32
-            return decode_boxes(raw, **kw)
-
-        return infer
+        return yolo_infer_fn(
+            self, decode_boxes,
+            yolo_decode_args(self.cfg, self.nc, conf_threshold))

@@ -6,6 +6,12 @@ ultralytics' ``model.{i}`` names, so the map below is the port's own copy
 of tpucv's ``YOLOV8_LAYER_MAP``. Layouts: conv kernels HWIO -> OIHW; BN
 ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``; the
 frozen ``dfl_proj`` -> ``model.22.dfl.conv.weight`` (1, reg_max, 1, 1).
+
+tpucv's segment and pose heads (``segment`` / ``pose``) nest the detect
+branch one level down (``segment/detect/cv2_0_0``, ``pose/detect/dfl_proj``)
+beside their own ``cv4_{lv}_{j}`` and ``proto``; the port's heads subclass
+the detect head, so that level is dropped: ``model.22.cv2.0.0``,
+``model.22.cv4.0.0``, ``model.22.proto.cv1``.
 """
 
 from __future__ import annotations
@@ -23,10 +29,11 @@ YOLOV8_LAYER_MAP = {
     21: "h21", 22: "detect",
 }
 _TOP = {v: f"model.{k}" for k, v in YOLOV8_LAYER_MAP.items()}
+_TOP.update(segment="model.22", pose="model.22")
 _LEAF = {("params", "kernel"): "weight", ("params", "scale"): "weight",
          ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
          ("batch_stats", "var"): "running_var"}
-_HEAD_BRANCH = re.compile(r"^(cv[23])_(\d+)_(\d+)$")     # cv2_0_1 -> cv2.0.1
+_HEAD_BRANCH = re.compile(r"^(cv[234])_(\d+)_(\d+)$")    # cv2_0_1 -> cv2.0.1
 _REPEAT = re.compile(r"^m(\d+)$")                        # m0 -> m.0
 
 
@@ -48,18 +55,20 @@ def _part(p: str) -> str:
 
 def _torch_name(path) -> str:
     top, *mid, leaf = path
+    if top in ("segment", "pose") and mid[:1] == ["detect"]:
+        mid = mid[1:]
     return ".".join([_TOP[top], *map(_part, mid), leaf])
 
 
 def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """tpucv ``{"params", "batch_stats"}`` nested dicts of arrays -> the
-    port's ``Yolo8`` ``state_dict`` (ultralytics key names, f32 tensors).
-    Loads with ``strict=True``."""
+    port's ``Yolo8`` ``state_dict`` (ultralytics key names, f32 tensors),
+    for any of its heads. Loads with ``strict=True``."""
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, v in _walk(variables.get(coll, {})):
             v = np.array(v, dtype=np.float32)
-            if path == ("detect", "dfl_proj"):
+            if path[-1] == "dfl_proj":
                 sd["model.22.dfl.conv.weight"] = torch.from_numpy(
                     v.reshape(1, -1, 1, 1))
                 continue

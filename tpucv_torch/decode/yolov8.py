@@ -39,13 +39,15 @@ def topk_candidates(
     strides: Sequence[int] = (8, 16, 32),
     conf_threshold: float = 0.25,
     pre_nms_topk: int = 2048,
+    return_idx: bool = False,
 ):
     """The top-``pre_nms_topk`` anchors by best-class score, the stage
     before NMS. The DFL expectation runs in the maps' dtype (bf16 on the
     served path), as tpucv's does, then casts to f32.
 
     Returns (boxes (B, K, 4) xyxy px f32, scores (B, K) f32 descending,
-    classes (B, K) int32)."""
+    classes (B, K) int32), and with ``return_idx`` the candidates' flat
+    anchor indices (B, K) int64 as a fourth."""
     feat_shapes = [m.shape[1:3] for m in raw_maps]
     dev = raw_maps[0].device
     anchor_points, stride_arr = make_anchors(feat_shapes, strides, device=dev)
@@ -74,6 +76,8 @@ def topk_candidates(
     top_scores, top_idx = top_scores[:, :k].contiguous(), top_idx[:, :k]
     boxes = torch.gather(all_boxes, 1, top_idx[..., None].expand(-1, -1, 4))
     top_cls = torch.gather(best_cls, 1, top_idx)
+    if return_idx:
+        return boxes, top_scores, top_cls, top_idx
     return boxes, top_scores, top_cls
 
 
@@ -86,11 +90,16 @@ def decode_boxes(
     iou_threshold: float = 0.7,
     max_det: int = 300,
     pre_nms_topk: int = 2048,
+    return_idx: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Full decode + class-offset NMS. Returns fixed-shape (boxes
-    (B, max_det, 4) xyxy px, scores, classes, valid)."""
-    boxes, top_scores, top_cls = topk_candidates(
-        raw_maps, reg_max, strides, conf_threshold, pre_nms_topk)
+    (B, max_det, 4) xyxy px, scores, classes, valid), and with
+    ``return_idx`` the flat anchor index (B, max_det) of each kept
+    detection as a fifth (the segment and pose decodes gather their
+    per-anchor outputs with it)."""
+    boxes, top_scores, top_cls, top_idx = topk_candidates(
+        raw_maps, reg_max, strides, conf_threshold, pre_nms_topk,
+        return_idx=True)
     off = boxes + top_cls[..., None].to(boxes.dtype) * 7680.0
     idx, valid = dispatch_batched_nms(off, top_scores, iou_threshold,
                                       max_det)
@@ -102,4 +111,7 @@ def decode_boxes(
     valid = valid & (out_scores > conf_threshold)
     out_boxes = torch.where(valid[..., None], out_boxes,
                             torch.zeros_like(out_boxes))
+    if return_idx:
+        return (out_boxes, out_scores, out_cls, valid,
+                torch.gather(top_idx, 1, idx))
     return out_boxes, out_scores, out_cls, valid

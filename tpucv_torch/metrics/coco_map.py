@@ -1,5 +1,7 @@
-"""COCO-style mAP (bbox), pycocotools-compatible (counterpart of
-``tpucv/metrics/coco_map.py``'s bbox engine).
+"""COCO-style mAP, pycocotools-compatible (counterpart of
+``tpucv/metrics/coco_map.py``): the bbox engine, and on its matching
+hooks the segm protocol over dense masks (``COCOMaskAP``) and the
+keypoints protocol (``COCOKeypointAP``, OKS).
 
 The COCOeval bbox protocol:
 
@@ -356,3 +358,132 @@ class COCOMeanAP:
                    "Average Recall     (AR)"
             print(f" {kind} @[ IoU={iou} | area={area:>6s} | "
                   f"maxDets={md:>3d} ] = {v:0.3f}")
+
+
+class COCOMaskAP(COCOMeanAP):
+    """COCOeval iouType='segm' protocol over dense binary masks.
+
+    gts/dts carry {"mask": bool/uint8 (H, W)} instead of RLE (masks are
+    evaluated at one fixed canvas resolution, so dense arrays are exact).
+    GT "area" is the mask pixel count (pycocotools semantics); crowd IoU
+    uses the dt-area denominator, as bbox does. Matching and accumulation
+    are COCOMeanAP's; its own ``_iou`` keeps it on the numpy engine (the
+    C++ core is bbox-only, see ``COCOMeanAP._accumulate_native``).
+    """
+
+    def _dt_area(self, d: dict) -> float:
+        return float(np.count_nonzero(d["mask"]))
+
+    def _iou(self, dts, gts, iscrowd) -> np.ndarray:
+        if len(dts) == 0 or len(gts) == 0:
+            return np.zeros((len(dts), len(gts)))
+        D = np.stack([np.asarray(d["mask"], bool).reshape(-1)
+                      for d in dts]).astype(np.float32)
+        G = np.stack([np.asarray(g["mask"], bool).reshape(-1)
+                      for g in gts]).astype(np.float32)
+        inter = D @ G.T                                   # (nd, ng)
+        d_area = D.sum(axis=1, keepdims=True)
+        g_area = G.sum(axis=1, keepdims=True).T
+        union = np.where(iscrowd[None].astype(bool), d_area,
+                         d_area + g_area - inter)
+        return inter / np.maximum(union, np.spacing(1))
+
+
+# COCO 17-keypoint per-joint falloff constants (pycocotools cocoeval.py
+# Params.setKpParams: kpt_oks_sigmas)
+OKS_SIGMAS = np.array([
+    .26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62,
+    1.07, 1.07, .87, .87, .89, .89]) / 10.0
+
+
+class COCOKeypointAP(COCOMeanAP):
+    """COCOeval iouType='keypoints' protocol: OKS similarity, area ranges
+    all/medium/large, maxDets=20, GTs with no labeled keypoints ignored.
+    gts carry {keypoints (3K flat,), num_keypoints, bbox, area}; dts carry
+    {keypoints (3K flat,), score}.
+
+    pycocotools' ``computeOks``: per-joint squared distance over
+    (2*sigma)^2 scaled by the GT area; for GTs with no visible joints the
+    distance is to the 2x-expanded GT box. Its own matching hooks keep it
+    on the numpy engine.
+    """
+
+    iou_thrs = IOU_THRS
+    rec_thrs = REC_THRS
+    area_rng = {"all": (0.0, 1e10), "medium": (32.0**2, 96.0**2),
+                "large": (96.0**2, 1e10)}
+    max_dets = (20,)
+
+    def __init__(self, gts, dts, cat_ids, sigmas: np.ndarray = OKS_SIGMAS):
+        super().__init__(gts, dts, cat_ids)
+        self.sigmas = np.asarray(sigmas, float)
+
+    def _gt_extra_ignore(self, g: dict) -> bool:
+        kp = np.asarray(g["keypoints"], float)
+        return int((kp[2::3] > 0).sum()) == 0
+
+    def _dt_area(self, d: dict) -> float:
+        # pycocotools loadRes: the dt area is the keypoint-extent box
+        kp = np.asarray(d["keypoints"], float)
+        x, y = kp[0::3], kp[1::3]
+        return float((x.max() - x.min()) * (y.max() - y.min()))
+
+    def _iou(self, dts, gts, iscrowd) -> np.ndarray:
+        if len(dts) == 0 or len(gts) == 0:
+            return np.zeros((len(dts), len(gts)))
+        var = (self.sigmas * 2) ** 2
+        ious = np.zeros((len(dts), len(gts)))
+        for gi, g in enumerate(gts):
+            kp = np.asarray(g["keypoints"], float)
+            xg, yg, vg = kp[0::3], kp[1::3], kp[2::3]
+            k1 = int((vg > 0).sum())
+            bb = g["bbox"]
+            x0, x1 = bb[0] - bb[2], bb[0] + bb[2] * 2
+            y0, y1 = bb[1] - bb[3], bb[1] + bb[3] * 2
+            area = g.get("area", bb[2] * bb[3])
+            for di, d in enumerate(dts):
+                kd = np.asarray(d["keypoints"], float)
+                xd, yd = kd[0::3], kd[1::3]
+                if k1 > 0:
+                    dx, dy = xd - xg, yd - yg
+                else:
+                    dx = np.maximum(0, x0 - xd) + np.maximum(0, xd - x1)
+                    dy = np.maximum(0, y0 - yd) + np.maximum(0, yd - y1)
+                e = (dx**2 + dy**2) / var / (area + np.spacing(1)) / 2
+                if k1 > 0:
+                    e = e[vg > 0]
+                ious[di, gi] = np.exp(-e).sum() / e.shape[0]
+        return ious
+
+    def summarize(self) -> Dict[str, float]:
+        md = self.max_dets[0]
+        return {
+            "AP": self._summarize(True, max_det=md),
+            "AP50": self._summarize(True, 0.5, max_det=md),
+            "AP75": self._summarize(True, 0.75, max_det=md),
+            "APm": self._summarize(True, area="medium", max_det=md),
+            "APl": self._summarize(True, area="large", max_det=md),
+            "AR": self._summarize(False, max_det=md),
+            "AR50": self._summarize(False, 0.5, max_det=md),
+            "AR75": self._summarize(False, 0.75, max_det=md),
+            "ARm": self._summarize(False, area="medium", max_det=md),
+            "ARl": self._summarize(False, area="large", max_det=md),
+        }
+
+    def print_summary(self, stats: Dict[str, float] | None = None):
+        stats = stats or self.summarize()
+        rows = [
+            ("Average Precision  (AP)", "0.50:0.95", "all", stats["AP"]),
+            ("Average Precision  (AP)", "0.50     ", "all", stats["AP50"]),
+            ("Average Precision  (AP)", "0.75     ", "all", stats["AP75"]),
+            ("Average Precision  (AP)", "0.50:0.95", "medium", stats["APm"]),
+            ("Average Precision  (AP)", "0.50:0.95", "large", stats["APl"]),
+            ("Average Recall     (AR)", "0.50:0.95", "all", stats["AR"]),
+            ("Average Recall     (AR)", "0.50     ", "all", stats["AR50"]),
+            ("Average Recall     (AR)", "0.75     ", "all", stats["AR75"]),
+            ("Average Recall     (AR)", "0.50:0.95", "medium", stats["ARm"]),
+            ("Average Recall     (AR)", "0.50:0.95", "large", stats["ARl"]),
+        ]
+        for kind, iou, area, v in rows:
+            print(f" {kind} @[ OKS={iou} | area={area:>6s} | "
+                  f"maxDets={self.max_dets[0]:>3d} ] = {v:0.3f}")

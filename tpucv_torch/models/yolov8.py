@@ -1,9 +1,10 @@
-"""YOLOv8 detection network, n/s/m/l/x (counterpart of
-``tpucv/models/yolov8.py``).
+"""YOLOv8 network, n/s/m/l/x, with a detect, segment or pose head
+(counterpart of ``tpucv/models/yolov8.py``).
 
 The graph is ultralytics' 23-layer CSPDarknet + C2f + SPPF backbone and
 PAN-FPN head, kept as ``self.model[0..22]`` so ``state_dict`` keys are the
-ultralytics ones (``model.{i}...``, ``model.22.cv2.{lv}...``). The forward
+ultralytics ones (``model.{i}...``, ``model.22.cv2.{lv}...``; the segment
+and pose heads add ``model.22.cv4.*`` and ``model.22.proto.*``). The forward
 takes tpucv's NHWC input and returns tpucv's NHWC raw maps; inside it runs
 NCHW modules on a ``channels_last`` tensor, so both permutes are views.
 Scaling follows ultralytics: n has 3,157,200 parameters at nc=80.
@@ -19,7 +20,7 @@ from torch import nn
 
 from tpucv_torch.nn.blocks import (C2f, Concat, ConvBnAct, SPPF, Upsample,
                                    init_weights)
-from tpucv_torch.nn.heads import DetectHead
+from tpucv_torch.nn.heads import DetectHead, PoseHead, SegmentHead
 
 # (depth_multiple, width_multiple, max_channels) per model scale
 SCALES: Dict[str, Tuple[float, float, int]] = {
@@ -40,20 +41,38 @@ def _n(n: int, depth: float) -> int:
     return max(round(n * depth), 1)
 
 
-class Yolo8(nn.Module):
-    """YOLOv8 backbone + PAN-FPN + decoupled detect head.
+HEADS = ("detect", "segment", "pose")
 
-    ``forward`` maps (B, H, W, 3) images to raw maps
-    ``((B, H/8, W/8, no), (B, H/16, W/16, no), (B, H/32, W/32, no))``,
-    ``no = 4*reg_max + nc``.
+
+class Yolo8(nn.Module):
+    """YOLOv8 backbone + PAN-FPN + decoupled head (layer 22).
+
+    ``forward`` maps (B, H, W, 3) images to the head's NHWC outputs. The
+    detect head gives raw maps ``((B, H/8, W/8, no), (B, H/16, W/16, no),
+    (B, H/32, W/32, no))``, ``no = 4*reg_max + nc``; ``head="segment"``
+    gives ``(det_maps, coef_maps, protos)`` and ``head="pose"``
+    ``(det_maps, kpt_maps)`` (see ``nn/heads.py``).
     """
 
-    def __init__(self, scale: str = "n", nc: int = 80, reg_max: int = 16):
+    def __init__(self, scale: str = "n", nc: int = 80, reg_max: int = 16,
+                 head: str = "detect", n_masks: int = 32,
+                 kpt_shape: Tuple[int, int] = (17, 3)):
         super().__init__()
+        if head not in HEADS:
+            raise ValueError(
+                f"head {head!r}: the port has {HEADS}; 'classify' (yolov8-cls) "
+                f"waits for the classification family")
         d, w, mc = SCALES[scale]
         c = lambda ch: _c(ch, w, mc)          # noqa: E731
         n = lambda k: _n(k, d)                # noqa: E731
         self.scale, self.nc, self.reg_max = scale, nc, reg_max
+        ch = (c(256), c(512), c(1024))
+        if head == "segment":
+            head_mod = SegmentHead(nc, n_masks, 256, reg_max, (8, 16, 32), ch)
+        elif head == "pose":
+            head_mod = PoseHead(nc, kpt_shape, reg_max, (8, 16, 32), ch)
+        else:
+            head_mod = DetectHead(nc, reg_max, (8, 16, 32), ch)
         self.model = nn.ModuleList([
             ConvBnAct(3, c(64), 3, 2),                          # 0  P1/2
             ConvBnAct(c(64), c(128), 3, 2),                     # 1  P2/4
@@ -77,8 +96,7 @@ class Yolo8(nn.Module):
             ConvBnAct(c(512), c(512), 3, 2),                    # 19
             Concat(),                                           # 20
             C2f(c(512) + c(1024), c(1024), n(3), False),        # 21 P5 out
-            DetectHead(nc, reg_max, (8, 16, 32),
-                       (c(256), c(512), c(1024))),              # 22
+            head_mod,                                           # 22
         ])
 
     def reset_parameters(self, generator: torch.Generator) -> "Yolo8":
@@ -88,7 +106,7 @@ class Yolo8(nn.Module):
         self.model[22].reset_biases()
         return self
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor):
         m = self.model
         x = x.permute(0, 3, 1, 2)                # NHWC -> NCHW view
         for i in range(4):

@@ -158,6 +158,24 @@ class Concat(nn.Module):
         return torch.cat(xs, 1)
 
 
+class Proto(nn.Module):
+    """Mask prototypes of the segment head: cv1 3x3 -> nearest 2x
+    upsample -> cv2 3x3 -> cv3 1x1, all ConvBnAct, ``mid_ch`` wide
+    (tpucv's ``Proto``). Ultralytics upsamples with a ``ConvTranspose2d``
+    and scales ``mid_ch`` by the model width (64 at n, here 256 at every
+    scale, as tpucv has it), so an ultralytics ``yolov8n-seg.pt`` does not
+    load into this head."""
+
+    def __init__(self, in_ch: int, mid_ch: int = 256, n_masks: int = 32):
+        super().__init__()
+        self.cv1 = ConvBnAct(in_ch, mid_ch, 3)
+        self.cv2 = ConvBnAct(mid_ch, mid_ch, 3)
+        self.cv3 = ConvBnAct(mid_ch, n_masks, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(upsample2x(self.cv1(x))))
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every conv weight from ``generator`` with LeCun-normal scale
     (std = 1/sqrt(fan_in), flax's default conv init) and reset BatchNorm to

@@ -1,8 +1,12 @@
-"""Detection head (counterpart of ``tpucv/nn/heads.py``).
+"""Detection, segment and pose heads (counterpart of
+``tpucv/nn/heads.py``).
 
-The head is a pure network: it returns per-level raw maps in tpucv's
-layout ``(B, H, W, 4*reg_max+nc)``; anchors, the DFL expectation and
-dist2bbox live in ``tpucv_torch.decode``.
+The heads are pure networks: they return per-level raw maps in tpucv's
+layout ``(B, H, W, 4*reg_max+nc)`` (NHWC); anchors, the DFL expectation
+and dist2bbox live in ``tpucv_torch.decode``. ``SegmentHead`` and
+``PoseHead`` subclass ``DetectHead`` as ultralytics' ``Segment`` and
+``Pose`` subclass ``Detect``, so their ``state_dict`` keys are
+``cv2.*``, ``cv3.*``, ``cv4.*``, ``dfl.*`` (and ``proto.*``).
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from tpucv_torch.nn.blocks import ConvBnAct
+from tpucv_torch.nn.blocks import ConvBnAct, Proto
 
 
 class DFL(nn.Module):
@@ -33,6 +37,18 @@ class DFL(nn.Module):
                 self.conv.in_channels, dtype=torch.float32).view(1, -1, 1, 1))
 
 
+def _branches(ch: Sequence[int], mid: int, out: int) -> nn.ModuleList:
+    """Per level: two 3x3 ConvBnAct and a 1x1 conv with a bias."""
+    return nn.ModuleList(
+        nn.Sequential(ConvBnAct(x, mid, 3), ConvBnAct(mid, mid, 3),
+                      nn.Conv2d(mid, out, 1)) for x in ch)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> NHWC, a view (no copy on a channels_last input)."""
+    return x.permute(0, 2, 3, 1)
+
+
 class DetectHead(nn.Module):
     """YOLOv8 decoupled anchor-free head. Per level: a box branch (two 3x3
     ConvBnAct + 1x1 conv -> 4*reg_max) and a class branch (two 3x3
@@ -46,12 +62,8 @@ class DetectHead(nn.Module):
         self.nc, self.reg_max, self.strides = nc, reg_max, tuple(strides)
         c2 = max(16, ch[0] // 4, reg_max * 4)
         c3 = max(ch[0], min(nc, 100))
-        self.cv2 = nn.ModuleList(
-            nn.Sequential(ConvBnAct(x, c2, 3), ConvBnAct(c2, c2, 3),
-                          nn.Conv2d(c2, 4 * reg_max, 1)) for x in ch)
-        self.cv3 = nn.ModuleList(
-            nn.Sequential(ConvBnAct(x, c3, 3), ConvBnAct(c3, c3, 3),
-                          nn.Conv2d(c3, nc, 1)) for x in ch)
+        self.cv2 = _branches(ch, c2, 4 * reg_max)
+        self.cv3 = _branches(ch, c3, nc)
         self.dfl = DFL(reg_max)
         self.reset_biases()
 
@@ -65,9 +77,48 @@ class DetectHead(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         """NCHW feature maps -> NHWC raw maps (views, no copy on a
         channels_last input)."""
-        return tuple(
-            torch.cat([b(x), c(x)], 1).permute(0, 2, 3, 1)
-            for x, b, c in zip(feats, self.cv2, self.cv3))
+        return tuple(_nhwc(torch.cat([b(x), c(x)], 1))
+                     for x, b, c in zip(feats, self.cv2, self.cv3))
+
+
+class SegmentHead(DetectHead):
+    """Detect + per-level mask-coefficient branches (``cv4``, width
+    ``max(ch[0] // 4, n_masks)``) + ``Proto`` on the P3 level.
+
+    ``forward`` returns ``(det_maps, coef_maps, protos)``: the detect maps,
+    per-level (B, H, W, n_masks) coefficients and (B, 2*H3, 2*W3, n_masks)
+    prototypes, all NHWC."""
+
+    def __init__(self, nc: int = 80, n_masks: int = 32, proto_ch: int = 256,
+                 reg_max: int = 16, strides: Tuple[int, ...] = (8, 16, 32),
+                 ch: Sequence[int] = (64, 128, 256)):
+        super().__init__(nc, reg_max, strides, ch)
+        self.cv4 = _branches(ch, max(ch[0] // 4, n_masks), n_masks)
+        self.proto = Proto(ch[0], proto_ch, n_masks)
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        det = super().forward(feats)
+        coefs = tuple(_nhwc(c(x)) for x, c in zip(feats, self.cv4))
+        return det, coefs, _nhwc(self.proto(feats[0]))
+
+
+class PoseHead(DetectHead):
+    """Detect + per-level keypoint branches (``cv4``, width
+    ``max(ch[0] // 4, nk)``, nk = kpt_shape[0] * kpt_shape[1]).
+
+    ``forward`` returns ``(det_maps, kpt_maps)``, per-level
+    (B, H, W, nk) raw keypoints, all NHWC."""
+
+    def __init__(self, nc: int = 1, kpt_shape: Tuple[int, int] = (17, 3),
+                 reg_max: int = 16, strides: Tuple[int, ...] = (8, 16, 32),
+                 ch: Sequence[int] = (64, 128, 256)):
+        super().__init__(nc, reg_max, strides, ch)
+        nk = kpt_shape[0] * kpt_shape[1]
+        self.cv4 = _branches(ch, max(ch[0] // 4, nk), nk)
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        det = super().forward(feats)
+        return det, tuple(_nhwc(c(x)) for x, c in zip(feats, self.cv4))
 
 
 def dfl_project(box_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:

@@ -23,6 +23,21 @@ INT8_REFUSAL = ("--int8: int8 post-training quantization waits for the "
                 "port's quant module (ROADMAP queue 1 item 12)")
 
 
+def summary(result: dict) -> str:
+    """One image's detections in words: objects, masks, keypoints."""
+    n = len(result["boxes"])
+    if not n:
+        return "no detections"
+    out = f"{n} objects"
+    if "masks" in result:
+        out += f", {n} masks"
+    if "keypoints" in result:
+        kv = result["keypoints"]
+        out += f", {int((kv[..., 2] > 0.5).sum())} of {kv[..., 0].size} " \
+               f"keypoints visible"
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tpucv_torch.predict")
     parser.add_argument("--model", type=str, required=True)
@@ -55,15 +70,13 @@ def main(argv=None):
             raise SystemExit("--type video takes one --src path")
         return [detect_video(algo, model, args.src[0], args.dst)]
 
-    infer_fn = algo.make_infer_fn()
+    infer_fn = algo.make_predict_infer_fn()
     t0 = time.time()
     results = []
     for path in args.src:
         result = algo.predict(model, path, infer_fn=infer_fn,
                               save_dir=args.dst)
-        n = len(result["boxes"])
-        summary = f"{n} objects" if n else "no detections"
-        print(f"{path}: {summary} -> {result['saved']}")
+        print(f"{path}: {summary(result)} -> {result['saved']}")
         results.append(result)
     print(f"total time: {time.time() - t0:.2f}s")
     return results

@@ -70,6 +70,10 @@ class BaseTrainer:
     # family's ``mean * B``); controls how grad_accum combines micro-grads
     # (see train/state.py make_train_step).
     LOSS_BATCH_SCALED = False
+    # False for trainers whose batches carry targets that augment_batch
+    # does not move (instance masks, keypoints): their images are only
+    # normalised, whatever ``train.device_aug`` says
+    DEVICE_AUG = True
 
     def __init__(self, cfg, device="cuda"):
         _refuse_unported(cfg)
@@ -139,7 +143,7 @@ class BaseTrainer:
         host_aug = batch.get("host_aug")
         out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev, copy=True)
                for k, v in batch.items() if k != "host_aug"}
-        use_dev_aug = (train and self.cfg.train.device_aug
+        use_dev_aug = (train and self.DEVICE_AUG and self.cfg.train.device_aug
                        and "gt_bboxes" in batch)
         if not use_dev_aug:
             out["images"] = normalize_images(out["images"], self.compute_dtype)
