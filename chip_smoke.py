@@ -2,8 +2,10 @@
 """Drive tpucv_torch's paths once on one NVIDIA GPU: the yolo8_det serving
 path, the bench entry point's inference program, the four measurement
 probes, the YOLOv8 training step, the YOLOv8 trainer, predict, evaluate
-and in-training mAP on the trainer's checkpoint, and YOLOv8-seg and
-YOLOv8-pose through their trainers, predict and evaluate.
+and in-training mAP on the trainer's checkpoint, YOLOv8-seg and
+YOLOv8-pose through their trainers, predict and evaluate, and int8
+post-training quantization of all three (parity, bench, serve, predict,
+evaluate).
 
     python3 chip_smoke.py
 
@@ -133,9 +135,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
 22. pose_eval_map  trainer.evaluate_map on the pose run (16 images, B=16,
             conf 0.01: K = 1024): nms_keep's count, detections equal to
             the plain route's, ms a call.
+23. int8_parity  yolo8_det, yolo8_seg and yolo8_pose as shipped (640,
+            bf16, seed-0 weights) quantized by quantize_variables on 8 of
+            the serve images (B=2), one batch of 2 through each int8
+            model: every quantized conv's int32 accumulators, card route
+            (im2col + torch._int_mm) against the plain route (float64
+            F.conv2d) on the card, bit-equal; count_quantized and the convs
+            whose GEMM needed padding (pose's six 51-wide ones among them).
+24. int8_bench  the bench entry's int8 program (bench.bench_int8, B=128
+            480x640, calibrated on the first resident batch; nms_keep's
+            count, one a call), then bf16 and int8 timed in turns (bf16,
+            int8, int8, bf16), then probes.int8_conv_parts: quantize,
+            im2col, _int_mm and dequant of the largest convs against
+            F.conv2d bf16.
+25. int8_serve  serve.build --int8 --calib (the serve images as JPEGs,
+            sharpened.ckpt, batch 8): 16 requests, nms_keep's count; the
+            share of the float model's detections matched by an int8 one
+            of the same class at IoU >= 0.5, at least INT8_MATCH_MIN; the
+            raw maps of a batch against the float model's: cosine at
+            least INT8_COS_MIN, best class agreeing at INT8_CLASS_AGREE_MIN
+            of the live anchors.
+26. int8_predict  the predict CLI --int8 on the predict phase's 5 images:
+            nms_keep's count (5), drawn files, the same matched share and
+            each image's raw maps, gated as in int8_serve.
+27. int8_evaluate  the evaluate CLI --int8 on the evaluate phase's COCO
+            root (K = 4096, the scan): its 12 stats finite, beside the
+            float run's; no accuracy gate (random weights).
 
 The line before the last holds {"kernels": [...]} (nms_keep, with its
-launches on every path that runs it, add_one, conv3x3); the last line is
+launches on every path that runs it, the int8 ones included, add_one,
+conv3x3); the last line is
 {"ok": true, "device": {...}}. The whole output is also written to
 chiprun_out/chip_smoke.log. Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -165,6 +194,9 @@ AUG_PIXEL_TOL = 1e-5   # augment_batch, card against CPU, f32 values in [0, 1]
 TRAIN_STEPS = 40       # 10 epochs of the synthetic set's 4 batches of 16
 STEADY_FROM = 8        # the trainer's window: steps 8-39 (epochs 2-9)
 # the evaluate loop's stages a batch, as _recorded_evaluate splits them
+INT8_MATCH_MIN = 0.5   # int8 serve / predict: float detections matched
+INT8_COS_MIN = 0.999   # int8 raw maps against float: tpucv's cosine bar
+INT8_CLASS_AGREE_MIN = 0.95   # and the best class at the live anchors
 LOOP_STAGES = ("fill_canvases", "h2d_letterbox_forward_topk", "scan",
                "d2h_records")
 
@@ -1735,7 +1767,7 @@ class Smoke:
                "detections": len(dts), "loader_jpeg": loader,
                "nvidia_smi": nvidia_smi()}
         emit({"phase": "evaluate", **row})
-        return launches
+        return launches, stats
 
     def _recorded_evaluate(self, cli, argv, algo_cls, decode, coco_cls):
         """The evaluate CLI's main once more, with recorders put around its
@@ -1906,6 +1938,384 @@ class Smoke:
                "ms_per_call": float(np.median(times)), "ms_runs": times,
                "nvidia_smi": nvidia_smi()}
         emit({"phase": "eval_map", **row})
+        return launches
+
+    # ------------------------------------------------------------ int8 --
+    def letterboxed(self, algo, imgs):
+        """The images on the algorithm's canvases, letterboxed on the card
+        as ``_batched_detections`` does: uint8 (B, S, S, 3)."""
+        from tpucv_torch.ops.preprocess import (host_letterbox_geom,
+                                                letterbox_images)
+
+        torch = self.torch
+        canv, hw, _, _ = algo._fill_canvases([(im,) for im in imgs],
+                                             range(len(imgs)), len(imgs),
+                                             algo.raw_canvas)
+        geom, hs = host_letterbox_geom(hw, algo.input_size)
+        lb, _, _ = letterbox_images(
+            *(torch.from_numpy(a).to(self.dev) for a in (canv, hw)),
+            algo.input_size, geom=torch.from_numpy(geom).to(self.dev),
+            scale=torch.from_numpy(hs).to(self.dev))
+        return lb
+
+    def phase_int8_parity(self, imgs):
+        """yolo8_det, yolo8_seg and yolo8_pose as shipped (YOLOv8n, 640,
+        bf16 autocast, random weights from seed 0), each quantized by its
+        algorithm's ``quantize_variables`` on 8 of the smoke's images (B=2),
+        then one batch of 2 through the int8 model with every quantized
+        conv's input captured: for each conv, the card route's int32
+        accumulators (im2col + ``torch._int_mm``) bit-equal to the plain
+        route's (float64 ``F.conv2d``) on the card. Counts the convs whose
+        GEMM needed M, K or N padding; pose's six 51-wide keypoint convs
+        must be among them."""
+        from tpucv_torch import quant
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ops import int8_conv
+        from tpucv_torch.ops.preprocess import normalize_images
+
+        torch = self.torch
+        index = [(im,) for im in imgs[:8]]
+        rows = {}
+        for name in ("yolo8_det", "yolo8_seg", "yolo8_pose"):
+            cfg, algo_cls, _ = export_from_registry(name)
+            algo = algo_cls(cfg, device=self.dev)
+            model = algo.init_variables(seed=0)
+            t0 = time.perf_counter()
+            q = algo.quantize_variables(model, index, n_images=8,
+                                        batch_size=2)
+            self.sync()
+            calib_s = time.perf_counter() - t0
+            check(quant.count_quantized(model) == 0,
+                  f"{name}: quantize_variables changed the float model")
+            seen = []
+            hooks = [m.register_forward_pre_hook(
+                lambda mod, inp, n=n: seen.append((n, mod, inp[0])))
+                for n, m in quant.hooked(q) if m.qweight is not None]
+            lb = self.letterboxed(algo, imgs[:2])
+            try:
+                with torch.inference_mode(), \
+                        torch.autocast("cuda", dtype=torch.bfloat16):
+                    out = flat_outputs(q(normalize_images(lb, algo.dtype)))
+            finally:
+                for h in hooks:
+                    h.remove()
+            check(all(torch.isfinite(o.float()).all() for o in out),
+                  f"{name}: non-finite int8 outputs")
+            n_q = quant.count_quantized(q)
+            check(len(seen) == n_q, f"{name}: {len(seen)} of {n_q} "
+                                    f"quantized convs ran")
+            padded, peak = [], 0
+            with torch.inference_mode():
+                for n, m, x in seen:
+                    c = m.conv
+                    geom = (c.kernel_size, c.stride, c.padding, c.dilation,
+                            c.groups)
+                    xq = quant.quantize_activation(x, m.xscale)
+                    card = int8_conv.conv_gemm(xq, m.qweight, *geom)
+                    plain = int8_conv.conv_plain(xq, m.qweight, *geom)
+                    self.sync()
+                    bad = int((card != plain).sum())
+                    check(bad == 0, f"{name} {n}: {bad} int32 accumulators "
+                                    f"of the card route differ from the "
+                                    f"plain route's")
+                    peak = max(peak, int(plain.abs().max()))
+                    M = card.shape[0] * card.shape[2] * card.shape[3]
+                    K, N = m.qweight.shape[1], m.qweight.shape[0]
+                    if int8_conv.gemm_dims(M, K, N) != (M, K, N):
+                        padded.append([n, M, K, N])
+            if name == "yolo8_pose":
+                wide = [p for p in padded if p[3] == 51]
+                check(len(wide) == 6, f"pose: 51-wide convs padded {wide}")
+            rows[name] = {"count_quantized": n_q, "convs_compared": len(seen),
+                          "accumulators_bit_equal": True,
+                          "max_abs_accumulator": peak,
+                          "padded_convs": len(padded), "padded": padded,
+                          "size": algo.input_size, "calibrate_s": calib_s}
+            del model, q, seen
+        emit({"phase": "int8_parity", "batch": 2, **rows})
+
+    def phase_int8_bench(self, model):
+        """The bench entry point's int8 program (``bench.bench_int8``: PTQ
+        calibrated on the first resident B=128 batch, then the same
+        letterbox + forward + decode + NMS as ``value``) with nms_keep's
+        count (one a call); then the bf16 and int8 programs timed in turns
+        (bf16, int8, int8, bf16) on the same resident batches; then the
+        stages of the largest convs (``probes.int8_conv_parts``) against
+        F.conv2d bf16 at the same shapes."""
+        import itertools
+
+        from tpucv_torch import bench
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.probes import int8_conv_parts
+        from tpucv_torch.probes.common import timed
+
+        torch = self.torch
+        shapes = bench.FULL
+        nms_keep.launches = 0                # just before the path
+        res = bench.bench_int8(model, self.dev, shapes)
+        launches = nms_keep.launches         # just after
+        calls = 3 + 1 + shapes.infer_iters
+        check(launches == calls, f"int8 bench: nms_keep launched "
+                                 f"{launches} times in {calls} calls")
+
+        resident = [h.to(self.dev) for h in bench.raw_batches(shapes)]
+        qmodel = bench.quantize_int8(model, resident[0], shapes.size, True)
+        programs = {k: bench.inference_program(m, shapes.size, True)[1]
+                    for k, m in (("bf16", model), ("int8", qmodel))}
+        turns = {"bf16": [], "int8": []}
+        with torch.inference_mode():
+            outs = {k: p(resident[0]) for k, p in programs.items()}
+            for k in ("bf16", "int8", "int8", "bf16"):
+                n = itertools.count()
+                turns[k].append(timed(
+                    lambda p=programs[k]: p(resident[next(n) % 4]),
+                    shapes.infer_iters, self.dev))
+        for k, o in outs.items():
+            check(all(torch.isfinite(t.float()).all() for t in o),
+                  f"{k} bench outputs not finite")
+        ms = {k: min(v) for k, v in turns.items()}
+        split = int8_conv_parts.main([])
+        check(all(r["accumulators_equal"] for r in split),
+              "a split shape's routes differ")
+        emit({"phase": "int8_bench", "batch": shapes.batch,
+              "iters": shapes.infer_iters, "nms_launches": launches,
+              **res, "turns_ms": turns,
+              "value_img_per_sec": shapes.batch * 1e3 / ms["bf16"],
+              "int8_img_per_sec_turns": shapes.batch * 1e3 / ms["int8"],
+              "int8_over_bf16_ms": ms["int8"] / ms["bf16"],
+              "detections_mean": {k: float(o[3].sum(1).float().mean())
+                                  for k, o in outs.items()},
+              "conv_split": split, "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def raw_closeness(self, algo, fmodel, qmodel, images_u8):
+        """The float and int8 models' raw maps on the same uint8 NHWC batch
+        (normalized and run as the infer fn does): per level max |int8 -
+        float| / max |float| and the cosine (at least INT8_COS_MIN, tpucv's
+        bar), and, at the anchors whose float best-class score passes the
+        config's confidence, the share whose best class the int8 maps agree
+        on (at least INT8_CLASS_AGREE_MIN); and how many anchors score
+        exactly 1 (the sharpened class branch saturates the sigmoid, and
+        the top-k takes the lowest indices among such ties)."""
+        torch = self.torch
+        from tpucv_torch.ops.preprocess import normalize_images
+
+        conf = algo.cfg.decode.conf_threshold
+        nb = 4 * algo.cfg.arch.reg_max
+        with torch.inference_mode(), \
+                torch.autocast("cuda", dtype=torch.bfloat16):
+            x = normalize_images(images_u8.to(self.dev), algo.dtype)
+            pairs = list(zip(fmodel(x), qmodel(x)))
+        rel, cos, agree, n, tied = [], [], 0, 0, 0
+        for f, q in pairs:
+            f, q = f.float(), q.float()
+            rel.append(float((q - f).abs().max() / f.abs().max()))
+            cos.append(float((f * q).sum() / (f.norm() * q.norm())))
+            fc, qc = f[..., nb:], q[..., nb:]
+            best = fc.max(-1).values.sigmoid()
+            live = best > conf
+            n += int(live.sum())
+            tied += int((best == 1.0).sum())
+            agree += int((fc.argmax(-1) == qc.argmax(-1))[live].sum())
+        out = {"max_rel_err": rel, "cosine": cos,
+               "class_agree_share": agree / max(n, 1), "anchors": n,
+               "anchors_scored_1": tied}
+        check(min(cos) >= INT8_COS_MIN and out["class_agree_share"]
+              >= INT8_CLASS_AGREE_MIN, f"int8 raw maps part from the "
+                                       f"float ones: {out}")
+        return out
+
+    @staticmethod
+    def matched_share(ref, got, iou=0.5, same_class=True):
+        """Share of the ``ref`` detections (boxes xyxy, classes) that a
+        ``got`` detection (of the same class, unless ``same_class`` is
+        False) overlaps at IoU >= ``iou``."""
+        n = hit = 0
+        for (rb, rc), (gb, gc) in zip(ref, got):
+            rb, gb = np.asarray(rb, np.float64), np.asarray(gb, np.float64)
+            n += len(rb)
+            if not len(rb) or not len(gb):
+                continue
+            lt = np.maximum(rb[:, None, :2], gb[None, :, :2])
+            rbb = np.minimum(rb[:, None, 2:], gb[None, :, 2:])
+            inter = np.clip(rbb - lt, 0, None).prod(-1)
+            area = lambda b: (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])  # noqa
+            u = area(rb)[:, None] + area(gb)[None, :] - inter
+            ok = inter / np.maximum(u, 1e-9) >= iou
+            if same_class:
+                ok &= np.asarray(rc)[:, None] == np.asarray(gc)[None, :]
+            hit += int(ok.any(1).sum())
+        return hit / max(n, 1)
+
+    def phase_int8_serve(self, ckpt, imgs):
+        """python -m tpucv_torch.serve's ``build`` with ``--int8 --calib``
+        (the smoke's images written as JPEGs, the sharpened checkpoint,
+        batch 8): 16 raw-RGB requests through the int8 server, nms_keep's
+        count zeroed just before, read just after; its detections against
+        the float model's on the same images (``_batched_detections``, the
+        server's path): the share of float detections matched at IoU >=
+        0.5 by an int8 detection of the same class, gated at
+        INT8_MATCH_MIN; the first batch's raw maps against the float
+        model's (``raw_closeness``)."""
+        import cv2
+
+        from tpucv_torch import quant
+        from tpucv_torch import serve as cli
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        calib = ROOT / "saves" / "chip_smoke" / "calib"
+        calib.mkdir(parents=True, exist_ok=True)
+        for k, img in enumerate(imgs):
+            check(cv2.imwrite(str(calib / f"{k:02d}.jpg"),
+                              cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
+                  "could not write a calibration image")
+        t0 = time.perf_counter()
+        server = cli.build(["--model", "yolo8_det", "--ckpt", ckpt,
+                            "--host", "127.0.0.1", "--port", "0",
+                            "--batch", "8", "--int8", "--calib", str(calib)])
+        build_s = time.perf_counter() - t0
+        n_q = quant.count_quantized(server.batcher.model)
+        results = [None] * len(imgs)
+        try:
+            def post(k):
+                results[k] = server.batcher.submit(imgs[k])
+
+            posters = [threading.Thread(target=post, args=(k,))
+                       for k in range(len(imgs))]
+            nms_keep.launches = 0            # just before the path
+            t0 = time.perf_counter()
+            for p in posters:
+                p.start()
+            for p in posters:
+                p.join(timeout=600)
+            wall = time.perf_counter() - t0
+            launches = nms_keep.launches     # just after
+            check(not any(p.is_alive() for p in posters), "requests hung")
+        finally:
+            server.batcher.stop()
+            server.server_close()
+        check(all("detections" in r for r in results),
+              f"failed requests: {[r for r in results if 'error' in r][:2]}")
+        check(launches > 0, "int8 serving launched no nms_keep")
+        got = [([d["box"] for d in r["detections"]],
+                [d["class_id"] for d in r["detections"]]) for r in results]
+
+        cfg, algo_cls, _ = export_from_registry("yolo8_det")
+        algo = algo_cls(cfg, device=self.dev)
+        model = algo.init_variables()
+        model.load_state_dict(CheckPoint.load_pure(ckpt))
+        ref = [None] * len(imgs)
+        for i, b, _, c in algo._batched_detections(
+                model, [(im,) for im in imgs], 8, cfg.decode.conf_threshold):
+            ref[i] = (b, c)
+        share = self.matched_share(ref, got)
+        check(share >= INT8_MATCH_MIN, f"int8 serving matched {share} of "
+                                       f"the float detections")
+        lb = self.letterboxed(algo, imgs[:8])
+        emit({"phase": "int8_serve", "requests": len(imgs), "batch": 8,
+              "count_quantized": n_q, "nms_launches": launches,
+              "build_s": build_s, "wall_s": wall,
+              "detections_int8": [len(g[0]) for g in got],
+              "detections_float": [len(r[0]) for r in ref],
+              "float_matched_share": share,
+              "float_matched_share_any_class": self.matched_share(
+                  ref, got, same_class=False),
+              "raw_maps_first_batch": self.raw_closeness(
+                  algo, model, server.batcher.model, lb),
+              "stats": server.batcher.snapshot()})
+        return launches
+
+    def phase_int8_predict(self, ckpt):
+        """python -m tpucv_torch.predict's main with ``--int8`` on the
+        predict phase's 4 JPEGs and a PNG (calibrated on them, B=5; conf
+        0.25, K <= 1024), nms_keep's count zeroed just before, read just
+        after; drawn files exist; the share of the float run's detections
+        matched as in int8_serve, and each image's raw maps against the
+        float model's (``raw_closeness``)."""
+        from tpucv_torch import predict as cli
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.utils.image_process import letter_box, read_image
+
+        out = ROOT / "saves" / "chip_smoke" / "predict"
+        srcs = sorted(str(p) for p in out.glob("img*.*"))
+        check(len(srcs) == 5, f"predict's images: {srcs}")
+        argv = ["--model", "yolo8_det", "--ckpt", ckpt, "--src", *srcs]
+        ref = cli.main([*argv, "--dst", str(out / "float")])
+        nms_keep.launches = 0                # just before the path
+        t0 = time.perf_counter()
+        got = cli.main([*argv, "--int8", "--dst", str(out / "int8")])
+        wall = time.perf_counter() - t0
+        launches = nms_keep.launches         # just after
+        check(launches == len(srcs), f"nms_keep launched {launches} times "
+                                     f"for {len(srcs)} images")
+        check(all(r["saved"] and Path(r["saved"]).is_file() for r in got),
+              "an int8 image was not drawn")
+        pairs = ([(r["boxes"], r["classes"]) for r in ref],
+                 [(r["boxes"], r["classes"]) for r in got])
+        share = self.matched_share(*pairs)
+        check(share >= INT8_MATCH_MIN, f"int8 predict matched {share} of "
+                                       f"the float detections")
+        # the CLI's int8 model again (calibrated on the same images, B=5),
+        # for its raw maps beside the float ones on each image
+        cfg, algo_cls, _ = export_from_registry("yolo8_det")
+        algo = algo_cls(cfg, device=self.dev)
+        fmodel = algo.init_variables()
+        fmodel.load_state_dict(CheckPoint.load_pure(ckpt))
+        qmodel = algo.quantize_variables(fmodel, [(p,) for p in srcs],
+                                         n_images=len(srcs),
+                                         batch_size=len(srcs))
+        s_ = algo.input_size
+        raw = [self.raw_closeness(algo, fmodel, qmodel, self.torch.from_numpy(
+            letter_box(read_image(p), (s_, s_))[0][None])) for p in srcs]
+        emit({"phase": "int8_predict", "images": len(srcs),
+              "nms_launches": launches, "cli_wall_s": wall,
+              "detections_int8": [len(r["classes"]) for r in got],
+              "detections_float": [len(r["classes"]) for r in ref],
+              "float_matched_share": share,
+              "float_matched_share_any_class": self.matched_share(
+                  *pairs, same_class=False),
+              "raw_maps_by_image": raw})
+        return launches
+
+    def phase_int8_evaluate(self, ckpt, float_stats, batch=32):
+        """python -m tpucv_torch.evaluate's main with ``--int8`` on the
+        evaluate phase's COCO root (calibrated on its first 32 images; B=32,
+        conf 0.001: K = 4096, the scan): it runs to its end and its 12
+        stats are finite; printed beside the float run's. No accuracy
+        gate: the weights are random."""
+        import os
+
+        from tpucv_torch import evaluate as cli
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        base = ROOT / "saves" / "chip_smoke" / "evaluate"
+        env_was, cwd = os.environ.get("TPUCV_COCO_ROOT"), os.getcwd()
+        os.environ["TPUCV_COCO_ROOT"] = str(base / "coco")
+        os.chdir(base)
+        try:
+            nms_keep.launches = 0
+            t0 = time.perf_counter()
+            stats = cli.main(["--model", "yolo8_det", "--dataset", "coco",
+                              "--ckpt", ckpt, "--batch-size", str(batch),
+                              "--int8"])
+            self.sync()
+            wall = time.perf_counter() - t0
+            launches = nms_keep.launches
+        finally:
+            os.chdir(cwd)
+            if env_was is None:
+                os.environ.pop("TPUCV_COCO_ROOT")
+            else:
+                os.environ["TPUCV_COCO_ROOT"] = env_was
+        check(len(stats) == 12 and all(np.isfinite(v) for v in
+                                       stats.values()), f"stats {stats}")
+        emit({"phase": "int8_evaluate", "batch": batch, "K": 4096,
+              "stats_int8": stats, "stats_float": float_stats,
+              "cli_wall_s": wall, "nms_keep_launches": launches})
         return launches
 
     def bound(self, sb, ss, keep, thr):
@@ -2193,7 +2603,7 @@ def main() -> int:
     ckpt_launches = smoke.phase_ckpt_serve(run, imgs)
     sharp = smoke.sharpened_ckpt(run)
     predict_launches = smoke.phase_predict(sharp, imgs)
-    evaluate_launches = smoke.phase_evaluate(sharp)
+    evaluate_launches, float_stats = smoke.phase_evaluate(sharp)
     eval_map_launches = smoke.phase_eval_map(run)
     smoke.phase_resume(run)       # its final save replaces the run's
     smoke.phase_seg_pose_parity()
@@ -2206,6 +2616,11 @@ def main() -> int:
     seg_eval_launches = smoke.phase_seg_evaluate(fam["yolo8_seg"][1])
     pose_eval_launches, pose_map_launches = smoke.phase_pose_evaluate(
         fam["yolo8_pose"][1], fam["yolo8_pose"][0])
+    smoke.phase_int8_parity(imgs)
+    int8_bench_launches = smoke.phase_int8_bench(model)
+    int8_serve_launches = smoke.phase_int8_serve(sharp, imgs)
+    int8_predict_launches = smoke.phase_int8_predict(sharp)
+    int8_eval_launches = smoke.phase_int8_evaluate(sharp, float_stats)
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
     print(nvidia_smi(), flush=True)
@@ -2224,7 +2639,12 @@ def main() -> int:
                              "seg_evaluate (K=4096: the scan)":
                                  seg_eval_launches,
                              "pose_evaluate (K=4096: the scan)":
-                                 pose_eval_launches},
+                                 pose_eval_launches,
+                             "int8_bench": int8_bench_launches,
+                             "int8_serve": int8_serve_launches,
+                             "int8_predict": int8_predict_launches,
+                             "int8_evaluate (K=4096: the scan)":
+                                 int8_eval_launches},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

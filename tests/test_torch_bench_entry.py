@@ -2,10 +2,11 @@
 of the port's benchmark, not its numbers.
 
 Its JSON line carries every key of ``bench.py:main``'s line (read from
-``bench.py``'s source), with the keys of what the port has not ported yet
-null and named in ``notes``; the train step's metrics are finite. On a
-machine without CUDA the default run refuses rather than falling back to
-the CPU."""
+``bench.py``'s source): ``int8_img_per_sec`` finite, the host-decode keys
+numbers where the native JPEG decode is available and null, with the
+reason in ``notes``, where it is not; the train step's metrics are finite.
+On a machine without CUDA the default run refuses rather than falling
+back to the CPU."""
 
 import ast
 import json
@@ -18,9 +19,8 @@ import torch
 from tpucv_torch import bench
 
 torch.set_num_threads(1)
-NOT_PORTED = ["int8_img_per_sec", "host_decode_img_per_sec_per_core",
-              "host_decode_threads", "feed_limited_img_per_sec_this_host",
-              "cores_to_feed_chip"]
+HOST_DECODE = ["host_decode_img_per_sec_per_core", "host_decode_threads",
+               "feed_limited_img_per_sec_this_host", "cores_to_feed_chip"]
 
 
 def bench_py_keys():
@@ -50,9 +50,26 @@ def test_line_has_bench_py_keys(line):
 
 
 def test_not_ported_keys_are_null_and_named(line):
-    for k in NOT_PORTED:
-        assert line[k] is None, k
-    assert "int8" in line["notes"] and "host_decode" in line["notes"]
+    """Every key is filled where its engine runs: int8 always, the host
+    decode where ``imagepipe.available()``; else null and named in
+    ``notes``."""
+    from tpucv_torch.native import imagepipe
+
+    assert np.isfinite(line["int8_img_per_sec"]) and \
+        line["int8_img_per_sec"] > 0
+    assert line["int8_convs"] == 56
+    if imagepipe.available():
+        rates = line["host_decode_threads"]
+        assert set(rates) == {"1", "2", "4"}
+        assert line["host_decode_img_per_sec_per_core"] == rates["1"] > 0
+        assert line["feed_limited_img_per_sec_this_host"] == min(
+            rates["1"] * line["host_cores"], line["value"])
+        assert line["cores_to_feed_chip"] == int(np.ceil(
+            line["value"] / rates["1"]))
+        assert "host_decode" not in line["notes"]
+    else:
+        for k in HOST_DECODE:
+            assert line[k] is None and k in line["notes"], k
 
 
 def test_measured_values(line):
@@ -106,3 +123,17 @@ def test_refuses_a_missing_card():
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.main([])
+
+
+def test_host_decode_keys_null_without_the_library(monkeypatch):
+    """Where the native decode is unavailable (the card's host has no
+    libjpeg headers) the four keys are null and ``NO_NATIVE_DECODE`` names
+    them."""
+    from tpucv_torch.native import imagepipe
+
+    monkeypatch.setattr(imagepipe, "available", lambda: False)
+    assert bench.bench_host_decode(bench.SMALL) is None
+    keys = bench.feed_limits(None, 100.0)
+    assert set(keys) == set(HOST_DECODE)
+    assert all(v is None and k in bench.NO_NATIVE_DECODE
+               for k, v in keys.items())

@@ -767,3 +767,53 @@ def test_seg_pose_decode_through_nms_keep_equal_the_plain_route(head,
         assert torch.equal(g, r)
     assert torch.equal(got_idx, ref_idx)
     assert int(got[3].sum()) > 0
+
+
+# int8 PTQ: the GEMM route (im2col + torch._int_mm) against the plain
+# route (float64 F.conv2d) on the card, at YOLOv8's conv kinds and at the
+# shapes that need padding: pose's 51-wide convs (N, and K = 459) and
+# M <= 16 (the P5 map of one small image)
+INT8_SHAPES = [(2, 16, 40, 40, 32, 1, 1), (2, 32, 40, 40, 48, 3, 1),
+               (2, 16, 40, 40, 32, 3, 2), (2, 64, 20, 20, 51, 3, 1),
+               (2, 51, 20, 20, 51, 3, 1), (1, 64, 2, 2, 64, 3, 1),
+               (1, 51, 2, 2, 51, 1, 1)]
+
+
+@pytest.mark.parametrize("B,cin,H,W,cout,k,s", INT8_SHAPES)
+def test_int8_gemm_route_equals_the_plain_route(B, cin, H, W, cout, k, s):
+    from tpucv_torch.ops import int8_conv
+
+    g = torch.Generator(device="cuda").manual_seed(cin * k + cout)
+    xq = torch.randint(-127, 128, (B, cin, H, W), generator=g,
+                       device="cuda", dtype=torch.int8) \
+        .contiguous(memory_format=torch.channels_last)
+    wq = torch.randint(-127, 128, (cout, k * k * cin), generator=g,
+                       device="cuda", dtype=torch.int8)
+    geom = ((k, k), (s, s), (k // 2, k // 2), (1, 1), 1)
+    got = int8_conv.int8_conv(xq, wq, *geom)
+    want = int8_conv.conv_plain(xq, wq, *geom)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    # the extreme: every tap at 127 x -127; an interior output sums all
+    # k*k*cin of them
+    top = int8_conv.int8_conv(torch.full_like(xq, 127),
+                              torch.full_like(wq, -127), *geom)
+    taps = k * k * cin if H >= 3 else cin * min(k, 2) ** 2
+    assert int(top.min()) == -taps * 127 * 127
+
+
+def test_int_mm_shape_rule_is_what_gemm_dims_pads_for():
+    """torch._int_mm on CUDA refuses M <= 16 and K or N off a multiple of
+    8; gemm_dims pads exactly those."""
+    from tpucv_torch.ops import int8_conv
+
+    def mm(M, K, N):
+        a = torch.ones((M, K), dtype=torch.int8, device="cuda")
+        w = torch.ones((N, K), dtype=torch.int8, device="cuda")
+        return int8_conv.int8_mm(a, w)
+
+    assert int(mm(17, 8, 8)[0, 0]) == 8
+    for M, K, N in ((16, 8, 8), (32, 12, 8), (32, 8, 12)):
+        with pytest.raises(RuntimeError):
+            mm(M, K, N)
+        assert int8_conv.gemm_dims(M, K, N) != (M, K, N)

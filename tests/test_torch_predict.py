@@ -171,9 +171,19 @@ def test_evaluate_cli_on_a_coco_root(small, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("cli", ["predict", "evaluate"])
-def test_int8_refused_by_name(small, cli):
+def test_int8_refused_by_name(small, cli, monkeypatch):
+    """tpucv's refusal for an algorithm without ``quantize_variables``."""
     mod = small[0] if cli == "predict" else small[1]
-    with pytest.raises(SystemExit, match="--int8.*item 12"):
+    shrunk = mod.export_from_registry
+
+    def no_int8(name):
+        cfg, algo, trainer = shrunk(name)
+        return cfg, type("NoInt8", (algo,), {"quantize_variables": None}), \
+            trainer
+
+    monkeypatch.setattr(mod, "export_from_registry", no_int8)
+    with pytest.raises(SystemExit, match="--int8 is not supported for "
+                                         "yolo8_det"):
         mod.main(["--model", "yolo8_det", "--device", "cpu", "--int8"])
 
 

@@ -1,6 +1,7 @@
 """Shared detection-algorithm skeleton (counterpart of
-``tpucv/algorithms/base.py``): predict, the batched serving / evaluation
-loop, and the COCO and VOC evaluation harnesses.
+``tpucv/algorithms/base.py``): predict, int8 calibration
+(``quantize_variables``), the batched serving / evaluation loop, and the
+COCO and VOC evaluation harnesses.
 
 Where tpucv passes a flax ``variables`` pytree, the port passes the model
 itself: an ``nn.Module`` holding its weights on the algorithm's device,
@@ -18,8 +19,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpucv_torch import quant
 from tpucv_torch.configs.dataset_cfg import get_dataset_cfg
-from tpucv_torch.ops.preprocess import host_letterbox_geom, letterbox_images
+from tpucv_torch.ops.preprocess import (host_letterbox_geom, letterbox_images,
+                                        normalize_images)
 from tpucv_torch.utils.image_process import (letter_box, read_image,
                                              reverse_letter_box)
 from tpucv_torch.utils.visualize import show_detection_results
@@ -70,6 +73,43 @@ class DetectionAlgorithm:
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         return model
+
+    # -------- int8 post-training quantization -----------------------------
+    def quantize_variables(self, model: nn.Module, index, n_images: int = 32,
+                           batch_size: int = 8) -> nn.Module:
+        """PTQ entry point for the eval / predict / serve harness: calibrate
+        on the first ``n_images`` of ``index`` through the production
+        letterbox path (the forward under the algorithm's autocast) and
+        return a copy of ``model`` with its int8 buffers (see
+        ``tpucv_torch/quant.py``); ``model`` is not changed."""
+        s, C, dev = self.input_size, self.raw_canvas, self.device
+        n = min(n_images, len(index))
+        if n == 0 or batch_size <= 0:
+            raise ValueError("int8 calibration needs at least one image")
+
+        def batches():
+            # one calibration batch on the device at a time
+            for start in range(0, n, batch_size):
+                idxs = list(range(start, min(start + batch_size, n)))
+                canvases, hw, _, _ = self._fill_canvases(
+                    index, idxs, batch_size, C)
+                geom, hscale = host_letterbox_geom(hw, s)
+                lb, _, _ = letterbox_images(
+                    torch.from_numpy(canvases).to(dev),
+                    torch.from_numpy(hw).to(dev), s,
+                    geom=torch.from_numpy(geom).to(dev),
+                    scale=torch.from_numpy(hscale).to(dev))
+                yield normalize_images(lb, self.dtype)
+
+        with torch.autocast(dev.type, dtype=torch.bfloat16,
+                            enabled=self.mixed_precision):
+            qmodel = quant.quantize_for_inference(model, batches())
+        if quant.count_quantized(qmodel) == 0:
+            raise ValueError(
+                f"{type(model).__name__} has no quantizable convs: its "
+                f"blocks lack the ConvBnAct hooks (see "
+                f"tpucv_torch/quant.py); refusing to silently run float")
+        return qmodel
 
     # -------- shared inference plumbing ----------------------------------
     def predict(self, model: nn.Module, image_path: str, infer_fn=None,

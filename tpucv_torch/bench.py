@@ -18,9 +18,18 @@ Prints one JSON line with ``bench.py``'s keys:
   (forward, YOLOv8 loss with the TAL assigner, backward, Adam 1e-3, EMA
   0.9999) at B=128, 640², M=32 GT rows, on a batch made on the device as
   ``bench.py:78-85`` makes it, from a ``torch.Generator``.
-- ``int8_img_per_sec`` stays null until int8 PTQ is ported; the
-  ``host_decode_*``, ``feed_limited_*`` and ``cores_to_feed_chip`` keys
-  stay null until the native image pipeline is ported (``notes`` says so).
+- ``int8_img_per_sec``: the same program over the int8 PTQ model
+  (``quant.quantize_for_inference``, calibrated on the first resident
+  batch letterboxed and normalized as the program does it), timed as
+  ``value`` is.
+- ``host_decode_img_per_sec_per_core`` / ``host_decode_threads``: the
+  native JPEG decode (``native/imagepipe.decode_to_canvas``) of 160
+  noise JPEGs of 480x640 onto 640² canvases at 1, 2 and 4 threads, on the
+  host clock; ``feed_limited_img_per_sec_this_host`` = min(the 1-thread
+  rate x this host's cores, ``value``) and ``cores_to_feed_chip`` =
+  ceil(``value`` / the 1-thread rate), as ``bench.py:main`` reckons them.
+  Where the native library is unavailable (it needs libjpeg's headers to
+  build) the four stay null and ``notes`` says why.
 
 Card times come from CUDA events around many calls after warm-up
 (``probes.common.timed``); the train step's split into stages from the
@@ -35,6 +44,8 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
+import tempfile
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -43,6 +54,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpucv_torch import quant
 from tpucv_torch.algorithms.base import resolve_device
 from tpucv_torch.builder import export_from_registry
 from tpucv_torch.configs.base import OptimizerCfg
@@ -57,10 +69,13 @@ OPTIMIZER = OptimizerCfg(name="adam", lr=1e-3, warmup_iters=0,
                          ema_decay=0.9999)
 SPLIT_REPS = 5                   # steps the split takes the median of
 BASELINE_IMG_PER_S = 5000.0      # BASELINE.json's target, as bench.py uses
-NOT_PORTED = ("int8_img_per_sec: null until int8 PTQ is ported; "
-              "host_decode_*, feed_limited_img_per_sec_this_host and "
-              "cores_to_feed_chip: null until the native JPEG pipeline is "
-              "ported")
+DECODE_THREADS = (1, 2, 4)        # bench.py:bench_host_decode's counts
+NO_NATIVE_DECODE = (
+    "host_decode_img_per_sec_per_core, host_decode_threads, "
+    "feed_limited_img_per_sec_this_host and cores_to_feed_chip: null, the "
+    "native JPEG decode (tpucv_torch/native/imagepipe) is unavailable on "
+    "this host (its build needs libjpeg's headers, and its decode must "
+    "match cv2's)")
 
 
 @dataclass(frozen=True)
@@ -76,12 +91,13 @@ class Shapes:
     box_scale: float = 300.0    # GT coordinates uniform in [0, box_scale)
     train_warmup: int = 3
     train_iters: int = 30
+    decode_images: int = 160    # JPEGs of height x width for the host decode
 
 
 FULL = Shapes()
 SMALL = Shapes(batch=2, height=48, width=64, size=64, infer_iters=2,
                h2d_iters=1, train_batch=2, max_boxes=4, box_scale=30.0,
-               train_warmup=1, train_iters=2)
+               train_warmup=1, train_iters=2, decode_images=8)
 
 
 def _algo(dev: torch.device):
@@ -95,13 +111,19 @@ def yolo8n(dev: torch.device) -> nn.Module:
     return _algo(dev).init_variables(seed=0)
 
 
+def prep(raw_u8: torch.Tensor, size: int, amp: bool) -> torch.Tensor:
+    """The program's input: ``letterbox_static``, then normalized to bf16
+    (f32 without ``amp``)."""
+    lb, _, _ = letterbox_static(raw_u8, size)
+    return normalize_images(lb, torch.bfloat16 if amp else torch.float32)
+
+
 def inference_program(model: nn.Module, size: int, amp: bool):
     """``bench.py:main``'s program: (forward, program) over uint8 NHWC
     batches whose longer side is ``size``."""
 
     def fwd(raw_u8):
-        lb, _, _ = letterbox_static(raw_u8, size)
-        x = normalize_images(lb, torch.bfloat16 if amp else torch.float32)
+        x = prep(raw_u8, size, amp)
         with torch.autocast(raw_u8.device.type, dtype=torch.bfloat16,
                             enabled=amp):
             return model(x)
@@ -148,6 +170,89 @@ def bench_inference(model: nn.Module, dev: torch.device,
             "h2d_img_per_s": shapes.batch * 1e3 / h2d_ms,
             "h2d_gbytes_per_s": host[0].numel() / (copy_ms * 1e-3) / 1e9,
             "outputs": out[-1]}
+
+
+def quantize_int8(model: nn.Module, raw_u8: torch.Tensor, size: int,
+                  amp: bool) -> nn.Module:
+    """``bench.py:403-426``'s int8 model: PTQ calibrated on one uint8
+    batch through the program's own letterbox and normalize, the forward
+    under its autocast."""
+    with torch.autocast(raw_u8.device.type, dtype=torch.bfloat16,
+                        enabled=amp):
+        return quant.quantize_for_inference(model, [prep(raw_u8, size, amp)])
+
+
+def bench_int8(model: nn.Module, dev: torch.device,
+               shapes: Shapes = FULL) -> Dict[str, object]:
+    """The program over ``quantize_int8(model)`` on the resident batches,
+    timed as ``bench_inference`` times ``value`` (3 warm-up calls, then
+    ``infer_iters``)."""
+    amp = dev.type == "cuda"
+    resident = [h.to(dev) for h in raw_batches(shapes)]
+    qmodel = quantize_int8(model, resident[0], shapes.size, amp)
+    _, program = inference_program(qmodel, shapes.size, amp)
+    n = itertools.count()
+    with torch.inference_mode():
+        for _ in range(3):
+            program(resident[0])
+        ms = timed(lambda: program(resident[next(n) % 4]),
+                   shapes.infer_iters, dev)
+    return {"int8_ms_per_batch": ms,
+            "int8_img_per_s": shapes.batch * 1e3 / ms,
+            "int8_convs": quant.count_quantized(qmodel)}
+
+
+def bench_host_decode(shapes: Shapes = FULL) -> Optional[Dict[int, float]]:
+    """``bench.py:bench_host_decode``: images/s of the native JPEG decode
+    onto canvases at each of ``DECODE_THREADS`` (host clock), over
+    ``decode_images`` full-frame noise JPEGs of height x width (quality 90,
+    the densest a photo's size gets: a worst case), 32 distinct files
+    repeated. None where the native library is unavailable."""
+    import cv2
+
+    from tpucv_torch.native import imagepipe
+
+    if not imagepipe.available():
+        return None
+    rng = np.random.default_rng(0)
+    n = shapes.decode_images
+    with tempfile.TemporaryDirectory(prefix="tpucv_benchjpg_") as tmp:
+        uniq = []
+        for i in range(32):
+            img = rng.integers(0, 255, (shapes.height, shapes.width, 3),
+                               dtype=np.uint8)
+            path = os.path.join(tmp, f"{i}.jpg")
+            cv2.imwrite(path, img[..., ::-1],
+                        [int(cv2.IMWRITE_JPEG_QUALITY), 90])
+            uniq.append(path)
+        paths = (uniq * -(-n // len(uniq)))[:n]
+        rates = {}
+        for nt in DECODE_THREADS:
+            t0 = time.perf_counter()
+            _, _, _, ok = imagepipe.decode_to_canvas(paths, shapes.size,
+                                                     n_threads=nt)
+            dt = time.perf_counter() - t0
+            if not ok.all():
+                raise RuntimeError(f"native decode failed on "
+                                   f"{int((~ok).sum())} of {n} JPEGs")
+            rates[nt] = n / dt
+    return rates
+
+
+def feed_limits(rates: Optional[Dict[int, float]],
+                ips: float) -> Dict[str, object]:
+    """``bench.py:main``'s feed-limit keys from the host decode rates and
+    the device rate ``ips``."""
+    per_core = rates[1] if rates else None
+    return {
+        "host_decode_img_per_sec_per_core": per_core,
+        "host_decode_threads": ({str(k): v for k, v in rates.items()}
+                                if rates else None),
+        "feed_limited_img_per_sec_this_host":
+            min(per_core * (os.cpu_count() or 1), ips) if per_core else None,
+        "cores_to_feed_chip": int(np.ceil(ips / per_core))
+        if per_core else None,
+    }
 
 
 def synthetic_batch(B: int, S: int, M: int, dev: torch.device,
@@ -277,8 +382,12 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
     dev = resolve_device(args.device)
     shapes = SMALL if args.small else FULL
 
-    inf = bench_inference(yolo8n(dev), dev, shapes)
+    model = yolo8n(dev)
+    inf = bench_inference(model, dev, shapes)
+    int8 = bench_int8(model, dev, shapes)
+    del model
     tr = bench_train(dev, shapes)
+    rates = bench_host_decode(shapes)
     ips = inf["img_per_s"]
     where = "chip" if dev.type == "cuda" else "cpu"
     line = {
@@ -288,16 +397,15 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
         "vs_baseline": ips / BASELINE_IMG_PER_S,
         "h2d_img_per_sec": inf["h2d_img_per_s"],
         "h2d_gbytes_per_sec": inf["h2d_gbytes_per_s"],
-        "int8_img_per_sec": None,
+        "int8_img_per_sec": int8["int8_img_per_s"],
         "train_img_per_sec": tr["train_img_per_s"],
         "train_step_ms": tr["train_step_ms"],
-        "host_decode_img_per_sec_per_core": None,
-        "host_decode_threads": None,
-        "feed_limited_img_per_sec_this_host": None,
-        "cores_to_feed_chip": None,
+        **feed_limits(rates, ips),
         "pipeline": f"uint8 {shapes.height}x{shapes.width} -> letterbox(pad)"
                     f"+normalize+forward+decode+NMS on {dev.type}",
-        "notes": NOT_PORTED,
+        "notes": "" if rates else NO_NATIVE_DECODE,
+        "int8_convs": int8["int8_convs"],
+        "host_cores": os.cpu_count(),
         "device": card(dev),
         "infer_batch": shapes.batch, "train_batch": shapes.train_batch,
         **{k: v for k, v in tr.items() if k not in (

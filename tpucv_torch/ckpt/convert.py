@@ -12,12 +12,18 @@ branch one level down (``segment/detect/cv2_0_0``, ``pose/detect/dfl_proj``)
 beside their own ``cv4_{lv}_{j}`` and ``proto``; the port's heads subclass
 the detect head, so that level is dropped: ``model.22.cv2.0.0``,
 ``model.22.cv4.0.0``, ``model.22.proto.cv1``.
+
+A ``quant`` collection (``tpucv/quant.py``) carries into the buffers of the
+port's quantized ``ConvBnAct`` (``tpucv_torch/quant.py``):
+``<scope>/conv::qkernel`` (HWIO int8) -> ``<module>.qweight``, packed
+(cout, kh·kw·cin); ``xscale`` / ``scale`` / ``bias`` -> ``xscale`` /
+``qscale`` / ``qbias`` as they are.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +41,8 @@ _LEAF = {("params", "kernel"): "weight", ("params", "scale"): "weight",
          ("batch_stats", "var"): "running_var"}
 _HEAD_BRANCH = re.compile(r"^(cv[234])_(\d+)_(\d+)$")    # cv2_0_1 -> cv2.0.1
 _REPEAT = re.compile(r"^m(\d+)$")                        # m0 -> m.0
+_QUANT = {"conv::qkernel": "qweight", "conv::xscale": "xscale",
+          "conv::scale": "qscale", "conv::bias": "qbias"}
 
 
 def _walk(tree: Mapping, path=()):
@@ -61,9 +69,10 @@ def _torch_name(path) -> str:
 
 
 def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """tpucv ``{"params", "batch_stats"}`` nested dicts of arrays -> the
-    port's ``Yolo8`` ``state_dict`` (ultralytics key names, f32 tensors),
-    for any of its heads. Loads with ``strict=True``."""
+    """tpucv ``{"params", "batch_stats"[, "quant"]}`` nested dicts of
+    arrays -> the port's ``Yolo8`` ``state_dict`` (ultralytics key names,
+    f32 tensors; the quant buffers int8 and f32), for any of its heads.
+    Loads with ``strict=True``."""
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, v in _walk(variables.get(coll, {})):
@@ -80,4 +89,18 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
             if leaf == "mean":
                 sd[name.replace("running_mean", "num_batches_tracked")] = \
                     torch.tensor(0)
+    for path, v in _walk(variables.get("quant", {})):
+        *mod, leaf = path
+        name, t = quant_buffer(leaf, v)
+        sd[_torch_name((*mod, name))] = t
     return sd
+
+
+def quant_buffer(key: str, value) -> Tuple[str, torch.Tensor]:
+    """One tpucv quant entry (``conv::qkernel`` etc.) -> the port's buffer
+    name and tensor: the HWIO int8 kernel packed (cout, kh·kw·cin), the
+    scales and the bias as they are."""
+    v = np.array(value)                # a copy; xscale stays 0-d
+    if key == "conv::qkernel":
+        v = np.transpose(v, (3, 0, 1, 2)).reshape(v.shape[3], -1)
+    return _QUANT[key], torch.from_numpy(v)

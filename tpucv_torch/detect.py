@@ -1,6 +1,7 @@
 """Video detection loop (counterpart of ``scripts/detect.py``; reference
 ``scripts/detect.py:8-45``): each frame is letterboxed on the host and goes
-through the algorithm's infer fn, with no temporary JPEG per frame."""
+through the algorithm's infer fn, with no temporary JPEG per frame; and
+the first frames as the int8 calibration index (``predict --int8``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,28 @@ from torch import nn
 
 from tpucv_torch.utils.image_process import letter_box, reverse_letter_box
 from tpucv_torch.utils.visualize import draw_detections
+
+
+def video_calib_frames(path: str, n: int = 8):
+    """The first ``n`` frames of a video (RGB) as an int8 calibration
+    index."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise SystemExit(f"cannot open video {path}")
+    frames = []
+    try:
+        while len(frames) < n:
+            ok, bgr = cap.read()
+            if not ok:
+                break
+            frames.append((cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB),))
+    finally:
+        cap.release()
+    if not frames:
+        raise SystemExit(f"no decodable frames in {path}")
+    return frames
 
 
 def detect_video(algo, model: nn.Module, src: str,

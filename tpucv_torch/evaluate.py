@@ -9,7 +9,9 @@ it stops with an error rather than moving to the CPU. The dataset is read
 through the algorithm's ``build_eval_index`` from the dataset's root
 (``TPUCV_COCO_ROOT`` / ``TPUCV_VOC_ROOT`` point it elsewhere); COCO
 detections are written to ``result/eval_results.json`` in the working
-directory, VOC plots (``--plots``) to ``result/plots``.
+directory, VOC plots (``--plots``) to ``result/plots``. ``--int8``
+calibrates on the first 32 images of the eval index and evaluates the
+quantized model (``tpucv_torch/quant.py``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import argparse
 
 from tpucv_torch.builder import export_from_registry
 from tpucv_torch.ckpt.checkpoint import CheckPoint
-from tpucv_torch.predict import INT8_REFUSAL
+from tpucv_torch.predict import require_int8
 
 
 def main(argv=None):
@@ -37,21 +39,24 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' must be asked for")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 post-training quantization (not ported: "
-                             "refused)")
+                        help="post-training int8 quantization: calibrate on "
+                             "the first eval images, then run the int8 "
+                             "inference path (tpucv_torch/quant.py)")
     args = parser.parse_args(argv)
-    if args.int8:
-        raise SystemExit(INT8_REFUSAL)
 
     cfg, algo_cls, _ = export_from_registry(args.model)
     if args.dataset:
         cfg.dataset.name = args.dataset
     algo = algo_cls(cfg, device=args.device)
+    if args.int8:
+        require_int8(algo, args.model)
     model = algo.init_variables()
     if args.ckpt:
         model.load_state_dict(CheckPoint.load_pure(args.ckpt))
 
     index = algo.build_eval_index(args.subset)
+    if args.int8:
+        model = algo.quantize_variables(model, index)
     kw = {"plots": True} if args.plots else {}
     return algo.run_eval(model, index, args.batch_size, **kw)
 

@@ -86,10 +86,11 @@ def _paths_array(paths: List[str]):
 
 
 def decode_to_canvas(paths: List[str], canvas: int,
-                     out: Optional[np.ndarray] = None):
+                     out: Optional[np.ndarray] = None, n_threads: int = 0):
     """Decode JPEGs into the top-left of per-image uint8 canvases (the
-    device letterbox's input layout, ``algorithms/base.py``), on a thread
-    per core. Images larger than the canvas are nearest pre-shrunk to fit,
+    device letterbox's input layout, ``algorithms/base.py``), on
+    ``n_threads`` threads (0: one a core; the bench measures 1, 2 and 4).
+    Images larger than the canvas are nearest pre-shrunk to fit,
     with the cv2 path's geometry exactly.
 
     Returns ``(out, hw, orig, ok)``: out (N, canvas, canvas, 3) uint8,
@@ -119,7 +120,7 @@ def decode_to_canvas(paths: List[str], canvas: int,
             _paths_array(paths), n, canvas,
             out.ctypes.data_as(_pu8), hw.ctypes.data_as(_pi32),
             orig.ctypes.data_as(_pi32), ok.ctypes.data_as(_pu8),
-            0)                          # 0: one thread per core
+            n_threads)
     return out, hw, orig, ok.astype(bool)
 
 

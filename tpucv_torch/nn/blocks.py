@@ -8,8 +8,8 @@ follow ultralytics (``conv``/``bn``, ``cv1``/``cv2``, ``m.{i}``), so a
 momentum 0.03, as tpucv and the reference do, and in train mode keeps
 flax's running statistics (:class:`BatchNorm2d`).
 
-Only the float path of ``tpucv.quant.conv_bn`` is here; int8 PTQ is later
-work.
+``ConvBnAct`` carries the int8 PTQ hooks of ``tpucv.quant.conv_bn`` (see
+``tpucv_torch/quant.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tpucv_torch import quant
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -60,7 +62,14 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class ConvBnAct(nn.Module):
-    """Conv2d (no bias) + BatchNorm + SiLU."""
+    """Conv2d (no bias) + BatchNorm + SiLU, with tpucv's int8 PTQ hooks.
+
+    In eval mode the pair records its input's absmax while a
+    ``quant.calibrate`` pass has set ``calibration``, and takes
+    ``quant.quantized_conv`` (int8 in, int32 accumulate) when it holds the
+    quant buffers ``quant.QUANT_BUFFERS``; SiLU follows either path. Train
+    mode always runs the float path. A ``state_dict`` that holds the
+    buffers loads into a float-built pair and quantizes it."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, g: int = 1, d: int = 1,
@@ -70,10 +79,27 @@ class ConvBnAct(nn.Module):
                               dilation=d, groups=g, bias=False)
         self.bn = BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
+        self.calibration: Optional[quant.CalibrationSink] = None
+        for name in quant.QUANT_BUFFERS:
+            self.register_buffer(name, None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+        if not self.training and self.calibration is not None:
+            self.calibration.record(x, self.bn.eps)
+        if not self.training and self.qweight is not None:
+            x = quant.quantized_conv(self, x)
+        else:
+            x = self.bn(self.conv(x))
         return F.silu(x) if self.act else x
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a quantized model's state_dict: make room for its buffers first
+        for name in quant.QUANT_BUFFERS:
+            t = state_dict.get(prefix + name)
+            if t is not None and getattr(self, name) is None:
+                setattr(self, name, torch.empty_like(
+                    t, device=self.conv.weight.device))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
 class Bottleneck(nn.Module):

@@ -6,9 +6,12 @@ plus ``--device``:
 
 Runs on CUDA unless ``--device cpu`` is given; on a machine without CUDA
 it stops with an error rather than moving to the CPU. ``--ckpt`` takes a
-trainer bundle or a bare ``state_dict`` (``CheckPoint.load_pure``); without
-it the weights are random, drawn from seed 0. Drawn images go to ``--dst``
-as ``<name>@<timestamp>.jpg``.
+trainer bundle or a bare ``state_dict`` (``CheckPoint.load_pure``; a
+quantized model's loads quantized); without it the weights are random,
+drawn from seed 0. ``--int8`` quantizes the model after calibrating it on
+the ``--src`` images (batches of up to 8) or, for a video, on its first 8
+frames (``tpucv_torch/quant.py``). Drawn images go to ``--dst`` as
+``<name>@<timestamp>.jpg``.
 """
 
 from __future__ import annotations
@@ -19,8 +22,13 @@ import time
 from tpucv_torch.builder import export_from_registry
 from tpucv_torch.ckpt.checkpoint import CheckPoint
 
-INT8_REFUSAL = ("--int8: int8 post-training quantization waits for the "
-                "port's quant module (ROADMAP queue 1 item 12)")
+
+
+def require_int8(algo, model_name: str) -> None:
+    """tpucv's refusal of ``--int8`` for an algorithm without
+    ``quantize_variables``."""
+    if getattr(algo, "quantize_variables", None) is None:
+        raise SystemExit(f"--int8 is not supported for {model_name}")
 
 
 def summary(result: dict) -> str:
@@ -52,23 +60,36 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' must be asked for")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 post-training quantization (not ported: "
-                             "refused)")
+                        help="post-training int8 quantization, calibrated "
+                             "on the input images (tpucv_torch/quant.py)")
     args = parser.parse_args(argv)
-    if args.int8:
-        raise SystemExit(INT8_REFUSAL)
 
     cfg, algo_cls, _ = export_from_registry(args.model)
     algo = algo_cls(cfg, device=args.device)
+    if args.int8:
+        require_int8(algo, args.model)
     model = algo.init_variables()
     if args.ckpt:
         model.load_state_dict(CheckPoint.load_pure(args.ckpt))
 
     if args.type == "video":
-        from tpucv_torch.detect import detect_video
+        from tpucv_torch.detect import detect_video, video_calib_frames
         if len(args.src) != 1:
             raise SystemExit("--type video takes one --src path")
+        if args.int8:
+            model = algo.quantize_variables(
+                model, video_calib_frames(args.src[0]), n_images=8,
+                batch_size=4)
         return [detect_video(algo, model, args.src[0], args.dst)]
+
+    if args.int8:
+        if not args.src:
+            raise SystemExit("--int8 needs at least one --src image "
+                             "to calibrate on")
+        # an index is anything whose [i][0] is an image path or ndarray
+        calib = [(p,) for p in args.src]
+        model = algo.quantize_variables(model, calib, n_images=len(calib),
+                                        batch_size=min(8, len(calib)))
 
     infer_fn = algo.make_predict_infer_fn()
     t0 = time.time()

@@ -11,5 +11,8 @@ Each runs as ``python -m tpucv_torch.probes.<name>`` on the card (or with
 - ``probe_conv_parts``  scripts/probe_pallas_conv_parts.py: its cost
                         decomposition (nohalo, noshift, gemm1);
 - ``probe_conv_v2``     scripts/probe_pallas_conv_v2.py: the v2
-                        decomposition (nomask, rolling).
+                        decomposition (nomask, rolling);
+- ``int8_conv_parts``   no TPU script: the stages of the int8 PTQ conv
+                        (quantize, im2col, ``torch._int_mm``, dequant)
+                        against F.conv2d bf16.
 """

@@ -7,7 +7,9 @@ it stops with an error rather than moving to the CPU. ``--ckpt`` takes a
 checkpoint bundle the port's trainer wrote (``*.ckpt``) or a bare torch
 ``state_dict`` with the ultralytics key names (``model.{i}...``), read
 through ``CheckPoint.load_pure``; without it the weights are random, drawn
-from seed 0.
+from seed 0. ``--int8 --calib <dir or glob>`` serves the int8 PTQ model
+(``tpucv_torch/quant.py``), calibrated once at startup on the first 32
+images ``--calib`` matches.
 
   POST /predict  (body = JPEG/PNG bytes, or raw RGB) -> detections JSON
   GET  /healthz  -> model/config
@@ -17,10 +19,24 @@ from seed 0.
 from __future__ import annotations
 
 import argparse
+import glob
+import os
 
 from tpucv_torch.builder import export_from_registry
 from tpucv_torch.ckpt.checkpoint import CheckPoint
+from tpucv_torch.predict import require_int8
 from tpucv_torch.serving import make_server
+
+
+def calib_index(pattern: str, n: int = 32):
+    """The first ``n`` files of a directory or a glob, sorted, as a
+    calibration index."""
+    paths = sorted(
+        glob.glob(os.path.join(pattern, "*")) if os.path.isdir(pattern)
+        else glob.glob(pattern))[:n]
+    if not paths:
+        raise SystemExit(f"--calib matched no images: {pattern}")
+    return [(p,) for p in paths]
 
 
 def build(argv=None):
@@ -47,13 +63,24 @@ def build(argv=None):
     parser.add_argument("--max-queue", type=int, default=None,
                         help="queue depth beyond which requests fast-fail "
                              "503 (default: 8x batch)")
+    parser.add_argument("--int8", action="store_true",
+                        help="serve the int8 PTQ variant (needs --calib)")
+    parser.add_argument("--calib", type=str, default="",
+                        help="calibration images for --int8: a directory "
+                             "or a glob")
     args = parser.parse_args(argv)
 
     cfg, algo_cls, _ = export_from_registry(args.model)
     algo = algo_cls(cfg, device=args.device)
+    if args.int8:
+        require_int8(algo, args.model)
+        if not args.calib:
+            raise SystemExit("--int8 needs --calib images")
     model = algo.init_variables()
     if args.ckpt:
         model.load_state_dict(CheckPoint.load_pure(args.ckpt))
+    if args.int8:
+        model = algo.quantize_variables(model, calib_index(args.calib))
 
     conf = args.conf if args.conf is not None \
         else getattr(cfg.decode, "conf_threshold", 0.25)
