@@ -3,9 +3,10 @@
 path, the bench entry point's inference program, the four measurement
 probes, the YOLOv8 training step, the YOLOv8 trainer, predict, evaluate
 and in-training mAP on the trainer's checkpoint, YOLOv8-seg and
-YOLOv8-pose through their trainers, predict and evaluate, and int8
+YOLOv8-pose through their trainers, predict and evaluate, int8
 post-training quantization of all three (parity, bench, serve, predict,
-evaluate).
+evaluate), and YOLOv7-l through its forward, decode, trainer, predict,
+serve, evaluate, in-training mAP and int8 path.
 
     python3 chip_smoke.py
 
@@ -161,10 +162,44 @@ Phases, each printing one JSON line; any failure exits non-zero:
 27. int8_evaluate  the evaluate CLI --int8 on the evaluate phase's COCO
             root (K = 4096, the scan): its 12 stats finite, beside the
             float run's; no accuracy gate (random weights).
+28. yolo7_parity  yolo7 as shipped (YOLOv7-l, nc 20, 640), seed-0 weights:
+            the f32 forward (B=2) on the card against the CPU, the box rows
+            and the objectness and class rows of each map apart, each
+            within YOLO7_FWD_REL of its largest value (TF32's reading
+            reported beside it); yolov7_loss on the CPU's maps (100 GT
+            rows, some padded), card against CPU: num_match equal, terms
+            within 1e-4 relative. The later phases sharpen the head's
+            objectness and class rows by YOLO7_GAIN.
+29. yolo7_decode  decode_yolov7 on the card against the CPU on the same
+            bf16 maps: 8 serve images at 640 (K = 4096, the scan) and two
+            at 128² (K = 1,008: nms_keep, counted): keep sets, classes
+            and scores equal, boxes within 1e-3 px.
+30. yolo7_trainer  python -m tpucv_torch.train --model yolo7's main as
+            shipped (640², B=16, M=100, bf16, device augmentation, mosaic,
+            synthetic data) for 8 steps, 2 epochs, as seg_trainer: losses,
+            images/s over steps 4-7, the step's events and kernel times,
+            peak memory.
+31. yolo7_predict  the predict CLI on the serve images with the trained
+            weights sharpened (conf 0.5, K = 4096: the scan, nms_keep's
+            count 0): drawn files; ms an image by stage, the scan (synced
+            at both edges) inside the device's.
+32. yolo7_serve  16 requests through make_server (B=8, the scan), as
+            serve: statuses, detections, nms_keep's count 0, /stats.
+33. yolo7_evaluate  the evaluate CLI --model yolo7 on a VOC root written
+            here (65 640x480 JPEGs; B=32, conf 0.001: the scan): VOC mAP
+            and its COCO cross-summary, images/s, then the stage split of
+            _recorded_evaluate and every batch's scan against the CPU's.
+34. yolo7_eval_map  trainer.evaluate_map on the yolo7 run with the
+            sharpened weights as its EMA (16 images, B=16, the scan).
+35. yolo7_int8  int8_parity's check for yolo7 (card accumulators bit-equal
+            to the plain route's for every quantized conv; RepConv and the
+            heads stay float), then yolo7_int8_predict: the predict CLI
+            --int8 on yolo7_predict's 5 images (the scan), and the int8
+            raw maps against the float ones (cosine >= 0.99).
 
 The line before the last holds {"kernels": [...]} (nms_keep, with its
-launches on every path that runs it, the int8 ones included, add_one,
-conv3x3); the last line is
+launches on every path that runs it, the int8 and YOLOv7 ones included,
+add_one, conv3x3); the last line is
 {"ok": true, "device": {...}}. The whole output is also written to
 chiprun_out/chip_smoke.log. Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -189,6 +224,10 @@ IOU_OPS = 14       # min, max, sub, clamp per axis (8), mul, add, sub, add,
 AREA_OPS = 5       # div, compare; area: two sub, two clamp, one mul
 CLS_GAIN = 3000.0  # the init's class logits are ~1e-4: scores would all
                    # round to 0.5 in bf16; scaled up they spread
+YOLO7_GAIN = 1e6   # YOLOv7-l's init head logits are ~1e-5 (its activations
+                   # shrink through ~100 identity BatchNorms and SiLUs)
+YOLO7_FWD_REL = 1e-4   # YOLOv7-l's f32 maps, card against CPU, each channel
+                       # group against its largest value
 ROOT = Path(__file__).resolve().parent
 AUG_PIXEL_TOL = 1e-5   # augment_batch, card against CPU, f32 values in [0, 1]
 TRAIN_STEPS = 40       # 10 epochs of the synthetic set's 4 batches of 16
@@ -197,6 +236,10 @@ STEADY_FROM = 8        # the trainer's window: steps 8-39 (epochs 2-9)
 INT8_MATCH_MIN = 0.5   # int8 serve / predict: float detections matched
 INT8_COS_MIN = 0.999   # int8 raw maps against float: tpucv's cosine bar
 INT8_CLASS_AGREE_MIN = 0.95   # and the best class at the live anchors
+INT8_COS_MIN_YOLO7 = 0.99     # YOLOv7-l: 85 quantized convs in a chain
+                              # (tpucv's own YOLOv7 bar is a max relative
+                              # error under 0.1; its seed-0 maps at 640 on
+                              # the CPU: 0.066-0.099, cosine 0.9958-0.9970)
 LOOP_STAGES = ("fill_canvases", "h2d_letterbox_forward_topk", "scan",
                "d2h_records")
 
@@ -281,6 +324,20 @@ def sharpen_(model) -> None:
         for head in model.model[22].cv3:
             head[-1].bias.zero_()
             head[-1].weight.mul_(CLS_GAIN)
+
+
+def sharpen_yolo7_(model) -> None:
+    """Zero the objectness and class rows' biases of YOLOv7's three head
+    convs and scale their kernels by YOLO7_GAIN, in place: scores go to 0
+    or 1 and the NMS has work."""
+    import torch
+
+    with torch.no_grad():
+        for i in (3, 4, 5):
+            head = getattr(model, f"yolo_head_P{i}")
+            per_anchor = 5 + model.nc
+            head.weight.view(model.na, per_anchor, -1)[:, 4:] *= YOLO7_GAIN
+            head.bias.view(model.na, per_anchor)[:, 4:] = 0.0
 
 
 def nvidia_smi() -> str:
@@ -391,6 +448,73 @@ def write_coco_root(root: Path, n: int) -> int:
             {"id": c, "name": COCO_CLASSES[k]}
             for k, c in enumerate(COCO80_TO_COCO91)]}, f)
     return n + 1
+
+
+def write_voc_root(root: Path, n: int) -> int:
+    """A VOC devkit (``JPEGImages/``, ``Annotations/``,
+    ``ImageSets/Main/val.txt``): ``n`` 640x480 JPEGs cut from
+    SyntheticDetectionIndex's 640x640 images (20 classes), their boxes as
+    objects, every fifth one ``difficult``. Returns the image count."""
+    import xml.etree.ElementTree as ET
+
+    import cv2
+
+    from tpucv_torch.configs.dataset_cfg import VOC_CLASSES
+    from tpucv_torch.data.detection_dataset import SyntheticDetectionIndex
+
+    src = SyntheticDetectionIndex(n, 640, 20, seed=5)
+    for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    ids, k = [], 0
+    for i in range(n):
+        img, boxes, labels = src[i]
+        img_id = f"{i:06d}"
+        ids.append(img_id)
+        check(cv2.imwrite(str(root / "JPEGImages" / f"{img_id}.jpg"),
+                          cv2.cvtColor(img[:480], cv2.COLOR_RGB2BGR)),
+              f"could not write {img_id}.jpg")
+        ann = ET.Element("annotation")
+        for b, lab in zip(boxes.tolist(), labels.tolist()):
+            y2 = min(b[3], 479.0)
+            if y2 - b[1] < 2:
+                continue
+            obj = ET.SubElement(ann, "object")
+            ET.SubElement(obj, "name").text = VOC_CLASSES[lab]
+            ET.SubElement(obj, "difficult").text = str(int(k % 5 == 4))
+            k += 1
+            bb = ET.SubElement(obj, "bndbox")
+            for key, v in zip(("xmin", "ymin", "xmax", "ymax"),
+                              (b[0], b[1], b[2], y2)):
+                ET.SubElement(bb, key).text = str(v)
+        ET.ElementTree(ann).write(root / "Annotations" / f"{img_id}.xml")
+    (root / "ImageSets" / "Main" / "val.txt").write_text(
+        "\n".join(ids) + "\n")
+    return n
+
+
+# the trainer phases' families: the arch field and M as shipped, the terms
+# each logs, the term evaluate_loop must report, the phase's name and how
+# the run's final weights are sharpened for predict and evaluate
+TRAINED = {
+    "yolo8_seg": dict(arch=("model_type", "n"), M=48,
+                      terms=("loss", "box_loss", "cls_loss", "dfl_loss",
+                             "mask_loss"), val="val_mask_loss",
+                      phase="seg_trainer", sharpen=sharpen_,
+                      desc="YOLOv8n, 640, B=16, M=48, bf16, no device "
+                           "augmentation, synthetic data"),
+    "yolo8_pose": dict(arch=("model_type", "n"), M=32,
+                       terms=("loss", "box_loss", "cls_loss", "dfl_loss",
+                              "kpt_loss", "kobj_loss"), val="val_kpt_loss",
+                       phase="pose_trainer", sharpen=sharpen_,
+                       desc="YOLOv8n, 640, B=16, M=32, bf16, no device "
+                            "augmentation, synthetic data"),
+    "yolo7": dict(arch=("phi", "l"), M=100,
+                  terms=("loss", "box_loss", "obj_loss", "cls_loss"),
+                  val="val_obj_loss", phase="yolo7_trainer",
+                  sharpen=sharpen_yolo7_,
+                  desc="YOLOv7-l, nc 20, 640, B=16, M=100, bf16, device "
+                       "augmentation, mosaic 0.5, synthetic data"),
+}
 
 
 # ---------------------------------------------------------------- phases --
@@ -506,14 +630,18 @@ class Smoke:
             imgs.append(np.clip(base + noise, 0, 255).astype(np.uint8))
         return imgs
 
-    def phase_serve(self, algo, model):
+    def phase_serve(self, algo, model, model_name="yolo8_det",
+                    phase="serve", scan=False):
+        """16 concurrent raw-RGB requests through make_server (batch 8);
+        nms_keep's count zeroed just before, read just after: some launches
+        on a path with K <= 1024, none where ``scan`` (K = 4096)."""
         from tpucv_torch.ops.cuda_nms import nms_keep
         from tpucv_torch.serving import make_server
 
         imgs = self._images(16)
         t0 = time.perf_counter()
         server = make_server(algo, model, host="127.0.0.1", port=0,
-                             batch_size=8, model_name="yolo8_det")
+                             batch_size=8, model_name=model_name)
         warm_s = time.perf_counter() - t0
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
@@ -558,8 +686,9 @@ class Smoke:
               f"{[r[1] for r in results if r[0] != 200][:2]}")
         n_dets = [len(r[1]["detections"]) for r in results]
         check(max(n_dets) > 0, "no request got a detection")
-        check(launches > 0, "the NMS kernel was not launched while serving")
-        emit({"phase": "serve", "requests": len(imgs), "statuses_ok": True,
+        check(launches == 0 if scan else launches > 0,
+              f"{phase}: nms_keep launched {launches} times while serving")
+        emit({"phase": phase, "requests": len(imgs), "statuses_ok": True,
               "detections": n_dets, "nms_launches": launches,
               "warmup_s": warm_s, "wall_s": wall, "stats": stats})
         return imgs, results, launches
@@ -1121,15 +1250,17 @@ class Smoke:
 
         torch = self.torch
         out = ROOT / "saves" / "chip_smoke" / name
+        fam = TRAINED[name]
         seen = {}
 
         def registry(model_name):
             cfg, algo, cls = export_from_registry(model_name)
             t, d = cfg.train, cfg.dataset
+            field, value = fam["arch"]
             check(d.input_size == 640 and t.batch_size == 16
-                  and t.mixed_precision and cfg.arch.model_type == "n"
-                  and d.max_num_boxes == {"yolo8_seg": 48,
-                                          "yolo8_pose": 32}[model_name],
+                  and t.mixed_precision
+                  and getattr(cfg.arch, field) == value
+                  and d.max_num_boxes == fam["M"],
                   f"{model_name}'s config is not as shipped")
             t.save_path, cfg.log.root = str(out / "saves"), str(out / "log")
             cfg.log.tensorboard_on = False
@@ -1159,17 +1290,15 @@ class Smoke:
         peak = torch.cuda.max_memory_allocated()
         trainer, rec, feed = seen["trainer"], seen["rec"], seen["feed"]
         check(state.step == steps, f"{name}: took {state.step} steps")
-        terms = {"yolo8_seg": ("mask_loss",),
-                 "yolo8_pose": ("kpt_loss", "kobj_loss")}[name]
-        losses = {k: rec.rows[f"train/{k}"] for k in
-                  ("loss", "box_loss", "cls_loss", "dfl_loss", *terms)}
+        losses = {k: rec.rows[f"train/{k}"] for k in fam["terms"]}
         check(all(np.isfinite(v) for r in losses.values() for v in r.values())
               and len(losses["loss"]) == steps, f"{name}: non-finite losses")
         val = trainer.last_eval
         check(all(np.isfinite(v) for v in val.values()) and
-              f"val_{terms[0]}" in val, f"{name}: evaluate_loop gave {val}")
+              fam["val"] in val, f"{name}: evaluate_loop gave {val}")
         saves = sorted(os.listdir(out / "saves"))
-        check(saves == [f"{name}_coco_epoch-1.ckpt", f"{name}_coco_final.ckpt"],
+        ds = trainer.cfg.dataset.name
+        check(saves == [f"{name}_{ds}_epoch-1.ckpt", f"{name}_{ds}_final.ckpt"],
               f"{name}: saved {saves}")
         a, b = window
         step_wall_ms = (feed.handed[b] - feed.handed[a]) / (b - a) * 1e3
@@ -1178,10 +1307,8 @@ class Smoke:
         batch = trainer.device_batch(next(iter(feed.loader)), train=True)
         step_ms = timed(lambda: step(state, batch), 10, self.dev)
         prof_ms = self._kernel_ms_a_step(step, state, batch, 5)
-        emit({"phase": f"{name.split('_')[1]}_trainer",
-              "config": f"{name} as shipped: YOLOv8n, 640, B=16, "
-                        f"M={trainer.cfg.dataset.max_num_boxes}, bf16, "
-                        f"no device augmentation, synthetic data",
+        emit({"phase": fam["phase"],
+              "config": f"{name} as shipped: {fam['desc']}",
               "steps": steps, "epochs_run": 2, "train_s": train_s,
               "loss_logged": losses, "val": val, "saves": saves,
               "window_steps": list(window), "step_wall_ms": step_wall_ms,
@@ -1195,14 +1322,15 @@ class Smoke:
 
     def family_sharpened(self, name, run):
         """The run's final weights with the class branch sharpened (as
-        ``sharpened_ckpt``), saved with save_pure beside them."""
+        ``sharpened_ckpt``; YOLOv7's objectness and class rows), saved with
+        save_pure beside them."""
         from tpucv_torch.builder import export_from_registry
         from tpucv_torch.ckpt.checkpoint import CheckPoint
 
         cfg, algo_cls, _ = export_from_registry(name)
         model = algo_cls(cfg, device=self.dev).init_variables(seed=1)
         model.load_state_dict(CheckPoint.load_pure(run["final_path"]))
-        sharpen_(model)
+        TRAINED[name]["sharpen"](model)
         return CheckPoint.save_pure(
             model, str(ROOT / "saves" / "chip_smoke" / name /
                        "sharpened.ckpt"))
@@ -1676,7 +1804,6 @@ class Smoke:
         from tpucv_torch.native import imagepipe, load
         from tpucv_torch.ops.cuda_nms import nms_keep
 
-        torch = self.torch
         base = ROOT / "saves" / "chip_smoke" / "evaluate"
         root = base / "coco"
         n_img = write_coco_root(root, 64)
@@ -1728,28 +1855,8 @@ class Smoke:
         check(all(nat_stats[k] == stats[k] for k in stats),
               "the CLI's stats are not the native engine's")
 
-        # the scan: every batch the CLI ran, against the CPU's scan
-        check(len(scans) == len(stages["images"]) == -(-n_img // batch),
-              f"{len(scans)} scans for batches of {stages['images']}")
-        kept = []
-        for k, (off, scores, thr, max_det, idx, valid) in enumerate(scans):
-            check(scores.shape[1] == 4096 and int(
-                (scores > 0).sum(1).min()) > max_det,
-                  f"batch {k}: the scan had little work: K "
-                  f"{scores.shape[1]}, {int((scores > 0).sum())} valid")
-            c_idx, c_valid = decode.dispatch_batched_nms(
-                off.cpu(), scores.cpu(), thr, max_det)
-            check(torch.equal(idx.cpu(), c_idx)
-                  and torch.equal(valid.cpu(), c_valid),
-                  f"batch {k}: the scan on the card differs from the scan "
-                  f"on the CPU")
-            kept += valid.sum(1).tolist()
-
-        loop_ms = sum(sum(stages[k]) for k in LOOP_STAGES)
-        full = [j for j, n in enumerate(stages["images"]) if n == batch]
-        check(len(full) == n_img // batch, f"batches {stages['images']}")
-        per_full_batch = {k: float(np.mean([stages[k][j] for j in full]))
-                          for k in LOOP_STAGES}
+        kept, loop_ms, per_full_batch = self._scans_equal_cpu(
+            scans, stages, n_img, batch, decode.dispatch_batched_nms)
         cfg = export_from_registry("yolo8_det")[0]
         loader = self._jpeg_loader_rates(index, cfg)
         row = {"images": n_img, "batch": batch, "K": 4096,
@@ -1829,6 +1936,34 @@ class Smoke:
                                                (s1, nxt["fill"][0]))):
                 stages[k].append((z - a) * 1e3)
         return stages, scans, stats
+
+    def _scans_equal_cpu(self, scans, stages, n_img, batch, dispatch):
+        """Every batch the evaluate CLI scanned (``_recorded_evaluate``),
+        with K = 4096 and more live candidates than ``max_det``, held
+        against ``dispatch`` on the CPU from the same candidates: idx and
+        valid equal. Returns (detections kept an image, the loop's ms,
+        the mean ms of each stage over the full batches)."""
+        torch = self.torch
+        check(len(scans) == len(stages["images"]) == -(-n_img // batch),
+              f"{len(scans)} scans for batches of {stages['images']}")
+        kept = []
+        for k, (off, scores, thr, max_det, idx, valid) in enumerate(scans):
+            check(scores.shape[1] == 4096 and int(
+                (scores > 0).sum(1).min()) > max_det,
+                  f"batch {k}: the scan had little work: K "
+                  f"{scores.shape[1]}, {int((scores > 0).sum())} valid")
+            c_idx, c_valid = dispatch(off.cpu(), scores.cpu(), thr, max_det)
+            check(torch.equal(idx.cpu(), c_idx)
+                  and torch.equal(valid.cpu(), c_valid),
+                  f"batch {k}: the scan on the card differs from the scan "
+                  f"on the CPU")
+            kept += valid.sum(1).tolist()
+        loop_ms = sum(sum(stages[k]) for k in LOOP_STAGES)
+        full = [j for j, n in enumerate(stages["images"]) if n == batch]
+        check(len(full) == n_img // batch, f"batches {stages['images']}")
+        per_full_batch = {k: float(np.mean([stages[k][j] for j in full]))
+                          for k in LOOP_STAGES}
+        return kept, loop_ms, per_full_batch
 
     def _jpeg_loader_rates(self, index, cfg, epochs=2):
         """The trainer's host feed (one thread, as yolo8_det ships) over the
@@ -1958,9 +2093,12 @@ class Smoke:
             scale=torch.from_numpy(hs).to(self.dev))
         return lb
 
-    def phase_int8_parity(self, imgs):
-        """yolo8_det, yolo8_seg and yolo8_pose as shipped (YOLOv8n, 640,
-        bf16 autocast, random weights from seed 0), each quantized by its
+    def phase_int8_parity(self, imgs, names=("yolo8_det", "yolo8_seg",
+                                             "yolo8_pose"),
+                          phase="int8_parity"):
+        """The ``names`` families as shipped (yolo8_det, yolo8_seg and
+        yolo8_pose: YOLOv8n; yolo7: YOLOv7-l; 640, bf16 autocast, random
+        weights from seed 0), each quantized by its
         algorithm's ``quantize_variables`` on 8 of the smoke's images (B=2),
         then one batch of 2 through the int8 model with every quantized
         conv's input captured: for each conv, the card route's int32
@@ -1976,7 +2114,7 @@ class Smoke:
         torch = self.torch
         index = [(im,) for im in imgs[:8]]
         rows = {}
-        for name in ("yolo8_det", "yolo8_seg", "yolo8_pose"):
+        for name in names:
             cfg, algo_cls, _ = export_from_registry(name)
             algo = algo_cls(cfg, device=self.dev)
             model = algo.init_variables(seed=0)
@@ -2032,7 +2170,7 @@ class Smoke:
                           "padded_convs": len(padded), "padded": padded,
                           "size": algo.input_size, "calibrate_s": calib_s}
             del model, q, seen
-        emit({"phase": "int8_parity", "batch": 2, **rows})
+        emit({"phase": phase, "batch": 2, **rows})
 
     def phase_int8_bench(self, model):
         """The bench entry point's int8 program (``bench.bench_int8``: PTQ
@@ -2318,6 +2456,424 @@ class Smoke:
               "cli_wall_s": wall, "nms_keep_launches": launches})
         return launches
 
+    # ---------------------------------------------------------- YOLOv7 --
+    def yolo7_setup(self):
+        """yolo7 as shipped: YOLOv7-l, nc 20, 640, bf16, decode at conf 0.5,
+        IoU 0.3, max_det 100, K 4096; the algorithm on the card and its
+        seed-0 model."""
+        from tpucv_torch.builder import export_from_registry
+
+        cfg, algo_cls, _ = export_from_registry("yolo7")
+        d = cfg.decode
+        check(cfg.arch.phi == "l" and cfg.dataset.input_size == 640
+              and cfg.num_classes == 20 and cfg.train.mixed_precision
+              and (d.conf_threshold, d.iou_threshold, d.max_det,
+                   d.pre_nms_topk) == (0.5, 0.3, 100, 4096),
+              "yolo7 config is not as shipped")
+        algo = algo_cls(cfg, device=self.dev)
+        return algo, algo.init_variables(seed=0)
+
+    def phase_yolo7_parity(self, algo, model):
+        """The f32 forward (TF32 off) of the seed-0 YOLOv7-l at 640, B=2,
+        unsharpened, on the card against the CPU: in each map the box rows
+        and the objectness and class rows apart, each within
+        YOLO7_FWD_REL of its largest value; the same forward with TF32 on,
+        reported beside it. Then ``yolov7_loss`` on the CPU's maps, on
+        both devices, with 100 GT rows an image (some padded, some off the
+        anchors' ratios): num_match equal and each term within 1e-4
+        relative."""
+        import copy
+
+        torch = self.torch
+        cpu = torch.device("cpu")
+        x = torch.from_numpy(np.random.default_rng(3).random(
+            (2, 640, 640, 3), dtype=np.float32))
+        backends = (torch.backends.cudnn, torch.backends.cuda.matmul)
+
+        def group_errs(got, ref):
+            out = {}
+            for i, (g, c) in enumerate(zip(got, ref)):
+                g = g.float().cpu().unflatten(-1, (model.na, -1))
+                c = c.unflatten(-1, (model.na, -1))
+                for grp, sl in (("box", slice(0, 4)),
+                                ("obj_cls", slice(4, None))):
+                    cg = c[..., sl]
+                    out[f"P{i + 3}_{grp}"] = float(
+                        (g[..., sl] - cg).abs().max() / cg.abs().max())
+            return out
+
+        with torch.inference_mode():
+            got = model(x.to(self.dev))
+            raw = copy.deepcopy(model).to(cpu).to(
+                memory_format=torch.contiguous_format)(x)
+            for b in backends:
+                b.allow_tf32 = True
+            try:
+                tf32 = model(x.to(self.dev))
+            finally:
+                for b in backends:
+                    b.allow_tf32 = False
+        rel, rel_tf32 = group_errs(got, raw), group_errs(tf32, raw)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              "yolo7: non-finite maps on the card")
+        rng = np.random.default_rng(4)
+        cxy = rng.uniform(20, 620, (2, 100, 2))
+        wh = rng.uniform(8, 400, (2, 100, 2))
+        gt = {"gt_bboxes": torch.from_numpy(np.concatenate(
+                  [cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)),
+              "gt_labels": torch.from_numpy(rng.integers(0, 20, (2, 100))),
+              "gt_mask": torch.from_numpy(rng.random((2, 100)) < 0.3)}
+        loss_fn = algo.build_loss()
+        runs = []
+        for dev in (cpu, self.dev):
+            with torch.inference_mode():
+                total, parts = loss_fn([r.to(dev) for r in raw],
+                                       {k: v.to(dev) for k, v in gt.items()})
+            runs.append({"loss": float(total),
+                         **{k: float(v) for k, v in parts.items()}})
+        c, g = runs
+        terms = {k: abs(g[k] - v) / max(abs(v), 1e-12) for k, v in c.items()}
+        emit({"phase": "yolo7_parity", "shapes": [list(t.shape) for t in got],
+              "forward_max_rel_err": max(rel.values()),
+              "forward_rel_err_by_group": rel,
+              "forward_tf32_max_rel_err": max(rel_tf32.values()),
+              "forward_tf32_rel_err_by_group": rel_tf32,
+              "loss_cpu": c, "loss_card": g,
+              "loss_max_rel_err": max(terms.values())})
+        check(max(rel.values()) < YOLO7_FWD_REL,
+              f"yolo7: the f32 forward on the card differs from the CPU: "
+              f"{rel} of each group's largest value")
+        check(c["num_match"] == g["num_match"] > 0,
+              f"yolo7: num_match card {g['num_match']} against CPU "
+              f"{c['num_match']}")
+        check(max(terms.values()) <= 1e-4,
+              f"yolo7: loss card {g} against CPU {c}")
+
+    def phase_yolo7_decode(self, algo, model, imgs):
+        """``decode_yolov7`` on the card against the CPU on the same raw
+        maps of the sharpened model (bf16 autocast, as served): the serve
+        images letterboxed to 640 (B=8, K = 4096: the scan) and the first
+        two at 128² (K = 1,008: nms_keep on the card, its plain version on
+        the CPU; nms_keep's count zeroed just before, read just after):
+        valid, classes and scores equal, boxes within 1e-3 px."""
+        from tpucv_torch.decode.yolov7 import decode_yolov7
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.preprocess import normalize_images
+
+        torch = self.torch
+        d = algo.cfg.decode
+        kw = dict(anchors=algo.anchors, strides=algo.strides, nc=algo.nc,
+                  conf_threshold=d.conf_threshold,
+                  iou_threshold=d.iou_threshold, max_det=d.max_det,
+                  pre_nms_topk=d.pre_nms_topk)
+        lb = self.letterboxed(algo, imgs[:8])
+        small = torch.nn.functional.interpolate(
+            lb[:2].permute(0, 3, 1, 2).float(), size=(128, 128),
+            mode="area").round().to(torch.uint8).permute(0, 2, 3, 1)
+        row = {}
+        for tag, x in (("640_K4096_scan", lb), ("128_K1008_nms_keep", small)):
+            with torch.inference_mode(), \
+                    torch.autocast("cuda", dtype=torch.bfloat16):
+                raw = model(normalize_images(x.contiguous(), algo.dtype))
+            A = sum(r.shape[1] * r.shape[2] * 3 for r in raw)
+            nms_keep.launches = 0            # just before the path
+            with torch.inference_mode():
+                got = decode_yolov7(raw, **kw)
+                self.sync()
+            launches = nms_keep.launches     # just after
+            with torch.inference_mode():
+                ref = decode_yolov7([r.cpu() for r in raw], **kw)
+            got = [t.cpu() for t in got]
+            check(launches == (1 if A <= 1024 else 0),
+                  f"yolo7 decode {tag}: nms_keep launched {launches} times")
+            check(torch.equal(got[3], ref[3]) and torch.equal(
+                got[2][got[3]], ref[2][ref[3]]) and torch.equal(got[1], ref[1]),
+                  f"yolo7 decode {tag}: the card's keep set differs from "
+                  f"the CPU's")
+            err = float((got[0] - ref[0]).abs().max())
+            check(err <= 1e-3, f"yolo7 decode {tag}: boxes differ by {err}")
+            n = got[3].sum(1).tolist()
+            check(min(n) > 0, f"yolo7 decode {tag}: no detections {n}")
+            row[tag] = {"B": x.shape[0], "anchors": A,
+                        "K": min(A, d.pre_nms_topk), "kept": n,
+                        "nms_launches": launches, "box_max_abs_err": err}
+        emit({"phase": "yolo7_decode", **row, "keep_sets_equal": True})
+        return row["128_K1008_nms_keep"]["nms_launches"]
+
+    def phase_yolo7_predict(self, ckpt, imgs, reps=3):
+        """``python -m tpucv_torch.predict --model yolo7``'s main on the
+        serve images (4 JPEGs, a PNG) with the trained run's final weights
+        sharpened (conf 0.5, K = 4096: the scan; nms_keep's count zeroed
+        just before, read just after, 0); drawn files exist; then ms an
+        image split into decode, letterbox, device (H2D, forward, decode,
+        NMS, D2H) with the scan inside it, and draw (median of
+        ``reps``)."""
+        import cv2
+
+        from tpucv_torch import predict as cli
+        from tpucv_torch.algorithms import base as base_mod
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops import nms as nms_mod
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        out = ROOT / "saves" / "chip_smoke" / "yolo7" / "predict"
+        out.mkdir(parents=True, exist_ok=True)
+        srcs = []
+        for k, img in enumerate(imgs[:5]):
+            srcs.append(str(out / f"img{k}{'.png' if k == 4 else '.jpg'}"))
+            check(cv2.imwrite(srcs[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
+                  f"could not write {srcs[-1]}")
+        argv = ["--model", "yolo7", "--ckpt", ckpt, "--src", *srcs]
+        nms_keep.launches = 0                # just before the path
+        t0 = time.perf_counter()
+        got = cli.main([*argv, "--dst", str(out / "drawn")])
+        wall = time.perf_counter() - t0
+        launches = nms_keep.launches         # just after
+        check(launches == 0, f"yolo7 predict: nms_keep launched {launches} "
+                             f"times at K=4096")
+        for src, r in zip(srcs, got):
+            check(r["saved"] and Path(r["saved"]).is_file(),
+                  f"{src}: no drawn file ({r['saved']})")
+        n_dets = [len(r["classes"]) for r in got]
+        check(min(n_dets) > 0, f"yolo7: an image got no detection: {n_dets}")
+
+        cfg, algo_cls, _ = export_from_registry("yolo7")
+        algo = algo_cls(cfg, device=self.dev)
+        model = algo.init_variables()
+        model.load_state_dict(CheckPoint.load_pure(ckpt))
+        infer = algo.make_predict_infer_fn()
+        rec = StageRecorder(self.sync)
+        for attr, label in (("read_image", "decode"),
+                            ("letter_box", "letterbox"),
+                            ("show_detection_results", "draw")):
+            rec.wrap(base_mod, attr, label)
+        scan = rec.wrapped(nms_mod.dispatch_batched_nms, "scan")
+
+        def synced_scan(*a, **kw):           # the forward's queue drained
+            self.sync()
+            return scan(*a, **kw)
+
+        rec._undo.append((nms_mod, "dispatch_batched_nms",
+                          nms_mod.dispatch_batched_nms))
+        nms_mod.dispatch_batched_nms = synced_scan
+        laps = {k: [] for k in ("decode", "letterbox", "device", "draw",
+                                "scan")}
+        try:
+            timed_infer = rec.wrapped(infer, "device")
+            for _ in range(reps):
+                for src in srcs:
+                    rec.events.clear()
+                    algo.predict(model, src, infer_fn=timed_infer,
+                                 save_dir=str(out / "timed"))
+                    ev = {k: (a, z) for k, a, z in rec.events}
+                    for k in laps:
+                        laps[k].append((ev[k][1] - ev[k][0]) * 1e3)
+        finally:
+            rec.restore()
+        med = {k: float(np.median(v)) for k, v in laps.items()}
+        emit({"phase": "yolo7_predict", "images": len(srcs), "K": 4096,
+              "nms_launches": launches, "detections": n_dets,
+              "cli_wall_s": wall, "ms_per_image": med,
+              "ms_per_image_total": sum(v for k, v in med.items()
+                                        if k != "scan"),
+              "scan_share_of_device": med["scan"] / med["device"],
+              "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_yolo7_evaluate(self, ckpt, batch=32):
+        """``python -m tpucv_torch.evaluate --model yolo7``'s main on a VOC
+        root written here (65 640x480 JPEGs, some objects difficult) with
+        the sharpened checkpoint (B=32, conf 0.001: K = 4096, the scan): the
+        VOC mAP and its COCO cross-summary, images/s; nms_keep's count 0.
+        Then the CLI once more with recorders around its own stages
+        (``_recorded_evaluate``): ms a full batch split into canvas fill,
+        H2D + letterbox + forward + top-k, the scan and D2H + records, the
+        COCO cross-summary's COCOeval; every batch's scan equal to the
+        CPU's from the candidates the CLI gave it."""
+        import os
+
+        from tpucv_torch import evaluate as cli
+        from tpucv_torch.algorithms.base import DetectionAlgorithm
+        from tpucv_torch.metrics.coco_map import COCOMeanAP
+        from tpucv_torch.ops import nms as nms_mod
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        base = ROOT / "saves" / "chip_smoke" / "yolo7" / "evaluate"
+        root = base / "voc"
+        n_img = write_voc_root(root, 65)
+        argv = ["--model", "yolo7", "--ckpt", ckpt, "--batch-size",
+                str(batch)]
+        env_was, cwd = os.environ.get("TPUCV_VOC_ROOT"), os.getcwd()
+        os.environ["TPUCV_VOC_ROOT"] = str(root)
+        os.chdir(base)
+        try:
+            nms_keep.launches = 0
+            t0 = time.perf_counter()
+            res = cli.main(argv)
+            self.sync()
+            wall = time.perf_counter() - t0
+            launches = nms_keep.launches
+            stages, scans, rec_res = self._recorded_evaluate(
+                cli, argv, DetectionAlgorithm, nms_mod, COCOMeanAP)
+        finally:
+            os.chdir(cwd)
+            if env_was is None:
+                os.environ.pop("TPUCV_VOC_ROOT")
+            else:
+                os.environ["TPUCV_VOC_ROOT"] = env_was
+        check(launches == 0, f"yolo7 evaluate: nms_keep launched {launches} "
+                             f"times at K=4096")
+        check(np.isfinite(res["mAP"]) and len(res["coco"]) == 12
+              and all(np.isfinite(v) for v in res["coco"].values()),
+              f"yolo7 evaluate: {res['mAP']}, {res['coco']}")
+        check(rec_res["mAP"] == res["mAP"], "the recorded run's mAP differs")
+        kept, loop_ms, per_full_batch = self._scans_equal_cpu(
+            scans, stages, n_img, batch, nms_mod.dispatch_batched_nms)
+        emit({"phase": "yolo7_evaluate", "images": n_img, "batch": batch,
+              "K": 4096, "mAP": res["mAP"], "coco": res["coco"],
+              "cli_wall_s": wall, "img_per_s_cli": n_img / wall,
+              "nms_keep_launches": launches,
+              "kept_per_image": [min(kept), float(np.mean(kept)), max(kept)],
+              "recorded_loop_img_per_s": n_img / loop_ms * 1e3,
+              "ms_per_full_batch": per_full_batch, "ms_by_batch": stages,
+              "scan_share_of_loop": sum(stages["scan"]) / loop_ms,
+              "scan_share_of_full_batch": per_full_batch["scan"] / sum(
+                  per_full_batch[k] for k in LOOP_STAGES),
+              "scan_equals_cpu_batches": len(scans),
+              "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_yolo7_eval_map(self, run, ckpt, reps=3):
+        """``trainer.evaluate_map`` on the yolo7 run's final state with the
+        sharpened weights handed over as its EMA (16 synthetic val images,
+        B=16, conf 0.01: K = 4096, the scan): VOC mAP@0.5, nms_keep's count
+        0, the trained weights unchanged, ms a call (median of
+        ``reps``)."""
+        import types
+
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        torch = self.torch
+        trainer = run["trainer"]
+        state = trainer.state
+        sharp = CheckPoint.load_pure(ckpt)
+        view = types.SimpleNamespace(
+            model=state.model,
+            ema={n: sharp[n].to(self.dev) for n in state.params})
+        live = {k: v.detach().clone() for k, v in
+                state.model.state_dict().items()}
+        nms_keep.launches = 0                # just before the path
+        t0 = time.perf_counter()
+        res = trainer.evaluate_map(view)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = nms_keep.launches         # just after
+        check(launches == 0, f"yolo7 evaluate_map: nms_keep launched "
+                             f"{launches} times at K=4096")
+        check(set(res) == {"map50"} and np.isfinite(res["map50"]),
+              f"yolo7 evaluate_map gave {res}")
+        check(all(torch.equal(v, live[k]) for k, v in
+                  state.model.state_dict().items()),
+              "evaluate_map changed the trained model")
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            trainer.evaluate_map(view)
+            times.append((time.perf_counter() - t0) * 1e3)
+        emit({"phase": "yolo7_eval_map", "images": len(trainer.val_index),
+              "batch": trainer.cfg.train.batch_size, "K": 4096,
+              "result": res, "nms_launches": launches,
+              "first_call_ms": first_ms,
+              "ms_per_call": float(np.median(times)), "ms_runs": times})
+        return launches
+
+    def phase_yolo7_int8_predict(self, ckpt):
+        """``python -m tpucv_torch.predict --model yolo7 --int8`` on the
+        yolo7 predict phase's 5 images (calibrated on them; K = 4096, the
+        scan): drawn files, finite detections, nms_keep's count 0; the
+        share of the float run's detections matched (as int8_predict,
+        reported, not gated: with the head sharpened by YOLO7_GAIN an
+        anchor scores 1 or 0 by the sign of a logit near 0, and the top-k
+        takes the lowest indices among the 1s, so the kept set follows
+        every flipped sign). Then the raw maps of the CLI's int8 model
+        (calibrated again on the same images) against the float model's
+        on each image: per level max relative error and cosine (at least
+        INT8_COS_MIN_YOLO7), the share of the float run's live anchors
+        (score > conf) live in int8 too and the best class agreeing on
+        them."""
+        from tpucv_torch import predict as cli
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.preprocess import normalize_images
+        from tpucv_torch.utils.image_process import letter_box, read_image
+
+        torch = self.torch
+
+        out = ROOT / "saves" / "chip_smoke" / "yolo7" / "predict"
+        srcs = sorted(str(p) for p in out.glob("img*.*"))
+        check(len(srcs) == 5, f"yolo7 predict's images: {srcs}")
+        argv = ["--model", "yolo7", "--ckpt", ckpt, "--src", *srcs]
+        ref = cli.main([*argv, "--dst", str(out / "float")])
+        nms_keep.launches = 0                # just before the path
+        t0 = time.perf_counter()
+        got = cli.main([*argv, "--int8", "--dst", str(out / "int8")])
+        wall = time.perf_counter() - t0
+        launches = nms_keep.launches         # just after
+        check(launches == 0, f"yolo7 int8 predict: nms_keep launched "
+                             f"{launches} times at K=4096")
+        check(all(r["saved"] and Path(r["saved"]).is_file() for r in got),
+              "a yolo7 int8 image was not drawn")
+        check(all(np.isfinite(r["boxes"]).all() for r in got)
+              and sum(len(r["classes"]) for r in got) > 0,
+              "yolo7 int8 predict: no finite detections")
+        pairs = ([(r["boxes"], r["classes"]) for r in ref],
+                 [(r["boxes"], r["classes"]) for r in got])
+        cfg, algo_cls, _ = export_from_registry("yolo7")
+        algo = algo_cls(cfg, device=self.dev)
+        fmodel = algo.init_variables()
+        fmodel.load_state_dict(CheckPoint.load_pure(ckpt))
+        qmodel = algo.quantize_variables(fmodel, [(p,) for p in srcs],
+                                         n_images=len(srcs),
+                                         batch_size=len(srcs))
+        s_, na, no = algo.input_size, algo.anchors.shape[1], 5 + algo.nc
+        conf = cfg.decode.conf_threshold
+        rel, cos, live_f, live_both, agree = [], [], 0, 0, 0
+        for p in srcs:
+            x = torch.from_numpy(letter_box(read_image(p), (s_, s_))[0][None])
+            with torch.inference_mode(), \
+                    torch.autocast("cuda", dtype=torch.bfloat16):
+                x = normalize_images(x.to(self.dev), algo.dtype)
+                maps = list(zip(fmodel(x), qmodel(x)))
+            for f, q in maps:
+                f, q = f.float(), q.float()
+                rel.append(float((q - f).abs().max() / f.abs().max()))
+                cos.append(float((f * q).sum() / (f.norm() * q.norm())))
+                f, q = (t.reshape(*t.shape[:3], na, no).sigmoid()
+                        for t in (f, q))
+                fs, qs = (t[..., 4:5] * t[..., 5:] for t in (f, q))
+                lf = fs.amax(-1) > conf
+                lq = qs.amax(-1) > conf
+                live_f += int(lf.sum())
+                live_both += int((lf & lq).sum())
+                agree += int((fs.argmax(-1) == qs.argmax(-1))[lf].sum())
+        raw = {"max_rel_err": max(rel), "cosine_min": min(cos),
+               "float_live_anchors": live_f,
+               "live_in_int8_share": live_both / max(live_f, 1),
+               "class_agree_share": agree / max(live_f, 1)}
+        check(min(cos) >= INT8_COS_MIN_YOLO7,
+              f"yolo7 int8 raw maps part from the float ones: {raw}")
+        emit({"phase": "yolo7_int8_predict", "images": len(srcs),
+              "raw_maps": raw,
+              "nms_launches": launches, "cli_wall_s": wall,
+              "detections_int8": [len(r["classes"]) for r in got],
+              "detections_float": [len(r["classes"]) for r in ref],
+              "float_matched_share": self.matched_share(*pairs),
+              "float_matched_share_any_class": self.matched_share(
+                  *pairs, same_class=False)})
+        return launches
+
     def bound(self, sb, ss, keep, thr):
         """Least time for the greedy keep mask on these inputs: bytes (boxes
         and scores read once, the mask written once) over HBM bandwidth,
@@ -2557,6 +3113,7 @@ def main() -> int:
         return 1
     # the port: absent when this file is copied out of the repository
     from tpucv_torch import _build
+    from tpucv_torch.ckpt.checkpoint import CheckPoint
 
     # the whole output, beside the end that a caller may keep
     sys.stdout = Tee(sys.stdout,
@@ -2621,6 +3178,21 @@ def main() -> int:
     int8_serve_launches = smoke.phase_int8_serve(sharp, imgs)
     int8_predict_launches = smoke.phase_int8_predict(sharp)
     int8_eval_launches = smoke.phase_int8_evaluate(sharp, float_stats)
+
+    y7_algo, y7_model = smoke.yolo7_setup()
+    smoke.phase_yolo7_parity(y7_algo, y7_model)
+    sharpen_yolo7_(y7_model)
+    y7_decode_launches = smoke.phase_yolo7_decode(y7_algo, y7_model, imgs)
+    y7_run = smoke.phase_family_trainer("yolo7")
+    y7_sharp = smoke.family_sharpened("yolo7", y7_run)
+    y7_predict_launches = smoke.phase_yolo7_predict(y7_sharp, imgs)
+    y7_model.load_state_dict(CheckPoint.load_pure(y7_sharp))
+    _, _, y7_serve_launches = smoke.phase_serve(
+        y7_algo, y7_model, model_name="yolo7", phase="yolo7_serve", scan=True)
+    y7_eval_launches = smoke.phase_yolo7_evaluate(y7_sharp)
+    y7_map_launches = smoke.phase_yolo7_eval_map(y7_run, y7_sharp)
+    smoke.phase_int8_parity(imgs, names=("yolo7",), phase="yolo7_int8")
+    y7_int8_launches = smoke.phase_yolo7_int8_predict(y7_sharp)
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
     print(nvidia_smi(), flush=True)
@@ -2644,7 +3216,19 @@ def main() -> int:
                              "int8_serve": int8_serve_launches,
                              "int8_predict": int8_predict_launches,
                              "int8_evaluate (K=4096: the scan)":
-                                 int8_eval_launches},
+                                 int8_eval_launches,
+                             "yolo7_decode at 128² (K=1008)":
+                                 y7_decode_launches,
+                             "yolo7_predict (K=4096: the scan)":
+                                 y7_predict_launches,
+                             "yolo7_serve (K=4096: the scan)":
+                                 y7_serve_launches,
+                             "yolo7_evaluate (K=4096: the scan)":
+                                 y7_eval_launches,
+                             "yolo7_eval_map (K=4096: the scan)":
+                                 y7_map_launches,
+                             "yolo7_int8_predict (K=4096: the scan)":
+                                 y7_int8_launches},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

@@ -39,7 +39,10 @@ def test_sources_found():
     for name in ("ops/masks.py", "decode/yolov8_seg.py",
                  "decode/yolov8_pose.py", "losses/yolov8_seg.py",
                  "losses/yolov8_pose.py", "data/pose_dataset.py",
-                 "algorithms/yolov8_seg.py", "trainer/yolo8_pose_train.py"):
+                 "algorithms/yolov8_seg.py", "trainer/yolo8_pose_train.py",
+                 "models/yolov7.py", "decode/yolov7.py", "losses/yolov7.py",
+                 "algorithms/yolov7.py", "trainer/yolo7_train.py",
+                 "deploy.py", "probes/train_step.py"):
         assert ROOT / "tpucv_torch" / name in SOURCES, name
 
 

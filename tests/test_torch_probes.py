@@ -28,7 +28,7 @@ from tpucv_torch.ops.conv3x3 import (SMEM_MAX, VARIANTS, conv3x3,
                                      strips_for)
 from tpucv_torch.ops.stream import add_one, add_one_reference
 from tpucv_torch.probes import (common, conv_ablations, probe_bw, probe_conv,
-                                probe_conv_parts, probe_conv_v2)
+                                probe_conv_parts, probe_conv_v2, train_step)
 
 torch.set_num_threads(1)
 
@@ -326,3 +326,13 @@ def test_library_name_covers_the_sources_own_flags(monkeypatch):
     monkeypatch.setitem(_build.SOURCE_FLAGS, "stream", ["--fmad=false"])
     assert _build.lib_path("stream") != before
     assert _build.lib_path("nms").name.startswith("libnms-")
+
+
+def test_train_step_probe_runs_small_on_cpu():
+    """The YOLOv7 step at 64², B=2, on the CPU: a finite time and no wait
+    for a device or copy to one inside the step."""
+    (row,) = train_step.main(["--device", "cpu", "--small"])
+    assert row["model"] == "yolo7" and (row["B"], row["S"]) == (2, 64)
+    assert np.isfinite(row["step_ms"]) and row["step_ms"] > 0
+    assert row["syncs_a_step"] == row["h2d_copies_a_step"] == 0
+    assert row["kernel_ms"] is None

@@ -1,7 +1,7 @@
 """Model-name whitelist (counterpart of ``tpucv/check.py``). It names the
 families the port has so far; the others join as their slices land."""
 
-MODELS = ["yolo8_det", "yolo8_seg", "yolo8_pose"]
+MODELS = ["yolo8_det", "yolo8_seg", "yolo8_pose", "yolo7"]
 
 
 def check_model_name(name: str) -> None:

@@ -18,6 +18,15 @@ port's quantized ``ConvBnAct`` (``tpucv_torch/quant.py``):
 ``<scope>/conv::qkernel`` (HWIO int8) -> ``<module>.qweight``, packed
 (cout, kh·kw·cin); ``xscale`` / ``scale`` / ``bias`` -> ``xscale`` /
 ``qscale`` / ``qbias`` as they are.
+
+tpucv's ``Yolo7`` tree (top-level ``stem0``, ``elan1``, ``mp1``, ...,
+``rep{i}``, ``head{i}``) maps onto the reference network's names through
+the port's copy of tpucv's ``YOLOV7_MODULE_MAP``: ``cv3_{i}`` ->
+``cv3.{i}``, ``rep{i}/{dense,one}_{conv,bn}`` ->
+``rep_conv_{i+1}.rbr_{dense,1x1}.{0,1}`` (``id_bn`` -> ``rbr_identity``;
+at phi x ``rep{i}`` is a ConvBnAct, ``rep_conv_{i+1}.conv/.bn``) and
+``head{i}`` -> ``yolo_head_P{i+3}``. The family is told by the tree's
+top-level names.
 """
 
 from __future__ import annotations
@@ -44,6 +53,30 @@ _REPEAT = re.compile(r"^m(\d+)$")                        # m0 -> m.0
 _QUANT = {"conv::qkernel": "qweight", "conv::xscale": "xscale",
           "conv::scale": "qscale", "conv::bias": "qbias"}
 
+# reference YOLOv7 module name -> tpucv Yolo7 module name
+YOLOV7_MODULE_MAP = {
+    "backbone.stem.0": "stem0", "backbone.stem.1": "stem1",
+    "backbone.stem.2": "stem2", "backbone.dark2.0": "stem3",
+    "backbone.dark2.1": "elan1", "backbone.dark3.0": "mp1",
+    "backbone.dark3.1": "elan2", "backbone.dark4.0": "mp2",
+    "backbone.dark4.1": "elan3", "backbone.dark5.0": "mp3",
+    "backbone.dark5.1": "elan4",
+    "conv_for_P5": "up1_conv", "conv_for_feat2": "p4_lat",
+    "conv3_for_upsample1": "helan1",
+    "conv_for_P4": "up2_conv", "conv_for_feat1": "p3_lat",
+    "conv3_for_upsample2": "helan2",
+    "down_sample1": "down1", "conv3_for_downsample1": "helan3",
+    "down_sample2": "down2", "conv3_for_downsample2": "helan4",
+}
+_Y7_TOP = {v: k for k, v in YOLOV7_MODULE_MAP.items()}
+_Y7_TOP.update(sppcspc="sppcspc",
+               **{f"rep{i}": f"rep_conv_{i + 1}" for i in range(3)},
+               **{f"head{i}": f"yolo_head_P{i + 3}" for i in range(3)})
+_Y7_PART = {"dense_conv": "rbr_dense.0", "dense_bn": "rbr_dense.1",
+            "one_conv": "rbr_1x1.0", "one_bn": "rbr_1x1.1",
+            "id_bn": "rbr_identity"}
+_ELAN_CONV = re.compile(r"^cv3_(\d+)$")                  # cv3_0 -> cv3.0
+
 
 def _walk(tree: Mapping, path=()):
     for k, v in tree.items():
@@ -68,11 +101,22 @@ def _torch_name(path) -> str:
     return ".".join([_TOP[top], *map(_part, mid), leaf])
 
 
+def _yolo7_name(path) -> str:
+    top, *mid, leaf = path
+    parts = []
+    for p in mid:
+        m = _ELAN_CONV.match(p)
+        parts.append(f"cv3.{m.group(1)}" if m else _Y7_PART.get(p, p))
+    return ".".join([_Y7_TOP[top], *parts, leaf])
+
+
 def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """tpucv ``{"params", "batch_stats"[, "quant"]}`` nested dicts of
-    arrays -> the port's ``Yolo8`` ``state_dict`` (ultralytics key names,
-    f32 tensors; the quant buffers int8 and f32), for any of its heads.
-    Loads with ``strict=True``."""
+    arrays -> the port's ``state_dict`` (f32 tensors; the quant buffers
+    int8 and f32): ``Yolo8`` with any of its heads (ultralytics key names)
+    or ``Yolo7`` (the reference's). Loads with ``strict=True``."""
+    name_of = (_yolo7_name if "stem0" in variables.get("params", {})
+               else _torch_name)
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, v in _walk(variables.get(coll, {})):
@@ -84,7 +128,7 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
             *mod, leaf = path
             if v.ndim == 4:                                   # HWIO -> OIHW
                 v = np.transpose(v, (3, 2, 0, 1))
-            name = _torch_name((*mod, _LEAF[(coll, leaf)]))
+            name = name_of((*mod, _LEAF[(coll, leaf)]))
             sd[name] = torch.from_numpy(np.ascontiguousarray(v))
             if leaf == "mean":
                 sd[name.replace("running_mean", "num_batches_tracked")] = \
@@ -92,7 +136,7 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     for path, v in _walk(variables.get("quant", {})):
         *mod, leaf = path
         name, t = quant_buffer(leaf, v)
-        sd[_torch_name((*mod, name))] = t
+        sd[name_of((*mod, name))] = t
     return sd
 
 

@@ -1,6 +1,6 @@
 """Per-model configs (counterpart of ``tpucv/configs/model_cfgs.py``), with
 tpucv's hyperparameter values. Only the families the port has so far are
-here: YOLOv8 detect, seg and pose."""
+here: YOLOv8 detect, seg and pose, and YOLOv7."""
 
 from __future__ import annotations
 
@@ -132,3 +132,58 @@ class Yolo8PoseConfig(BaseConfig):
     @property
     def num_classes(self) -> int:
         return 1                      # person
+
+
+# ------------------------------------------------------------------- YOLOv7
+YOLO7_ANCHORS: Tuple[Tuple[int, int], ...] = (
+    (12, 16), (19, 36), (40, 28),
+    (36, 75), (76, 55), (72, 146),
+    (142, 110), (192, 243), (459, 401),
+)
+
+
+@dataclass
+class Yolo7Arch:
+    phi: str = "l"                    # l | x
+    anchors: Tuple[Tuple[int, int], ...] = YOLO7_ANCHORS
+    anchor_mask: Tuple[Tuple[int, ...], ...] = ((0, 1, 2), (3, 4, 5), (6, 7, 8))
+    strides: Tuple[int, ...] = (8, 16, 32)
+
+
+@dataclass
+class Yolo7Loss:
+    # base ratios; the effective obj and cls gains scale with the input
+    # size and the class count (``Yolo7Config.loss_gains``)
+    box_gain: float = 0.05
+    obj_gain: float = 1.0
+    cls_gain: float = 0.5
+    label_smoothing: float = 0.0
+    layer_balance: Tuple[float, float, float] = (4.0, 1.0, 0.4)
+
+
+@config_registry("yolo7")
+@dataclass
+class Yolo7Config(BaseConfig):
+    arch: Yolo7Arch = field(default_factory=Yolo7Arch)
+    loss: Yolo7Loss = field(default_factory=Yolo7Loss)
+    dataset: DatasetCfg = field(default_factory=lambda: DatasetCfg(
+        name="voc", input_size=640, max_num_boxes=100))
+    optimizer: OptimizerCfg = field(default_factory=lambda: OptimizerCfg(
+        name="adam", lr=1e-3, warmup_iters=1000, milestones=(100, 200)))
+    decode: DecodeCfg = field(default_factory=lambda: DecodeCfg(
+        conf_threshold=0.5, iou_threshold=0.3, max_det=100))
+
+    @property
+    def model_name(self) -> str:
+        return "yolo7"
+
+    @property
+    def num_classes(self) -> int:
+        return get_dataset_cfg(self.dataset.name)["num_classes"]
+
+    def loss_gains(self) -> Tuple[float, float, float]:
+        """(box, obj, cls) gains: obj scales by S²/640², cls by nc/80."""
+        s = self.dataset.input_size
+        return (self.loss.box_gain,
+                self.loss.obj_gain * (s * s) / 640.0 ** 2,
+                self.loss.cls_gain * self.num_classes / 80.0)

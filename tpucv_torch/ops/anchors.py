@@ -1,9 +1,12 @@
-"""Anchor generation for anchor-free heads (counterpart of
-``tpucv/ops/anchors.py:make_anchors``)."""
+"""Anchor generation (counterpart of ``tpucv/ops/anchors.py``): the
+anchor points of the anchor-free heads (``make_anchors``) and the cell
+grids of the anchor-based ones (``yolo_anchor_grid``)."""
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
+
+import numpy as np
 
 import torch
 
@@ -32,3 +35,22 @@ def make_anchors(
         strs.append(torch.full((int(h) * int(w), 1), float(s),
                                dtype=torch.float32, device=device))
     return torch.cat(points), torch.cat(strs)
+
+
+def yolo_anchor_grid(
+    anchors: np.ndarray, feat_shapes: Sequence[Tuple[int, int]],
+    strides: Sequence[int], device="cuda",
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-level (grid_xy (H, W, 2), anchor_wh (na, 2)) pairs for the
+    anchor-based YOLO heads (v3, v7), f32 on ``device``; ``anchors`` is
+    (nl, na, 2) in pixels and grid_xy holds each cell's (x, y) index.
+    Built on ``device`` itself, as ``make_anchors`` is."""
+    f32 = dict(dtype=torch.float32, device=device)
+    out = []
+    for l, (h, w) in enumerate(feat_shapes):
+        gy, gx = torch.meshgrid(torch.arange(int(h), **f32),
+                                torch.arange(int(w), **f32), indexing="ij")
+        wh = torch.stack([torch.full((), float(v), **f32)
+                          for v in np.ravel(anchors[l])]).reshape(-1, 2)
+        out.append((torch.stack([gx, gy], -1), wh))
+    return out

@@ -113,3 +113,44 @@ def dispatch_batched_nms(off_boxes: torch.Tensor, top_scores: torch.Tensor,
                          diou=False)
     return cuda_nms(off_boxes, top_scores, iou_threshold, max_det,
                     presorted=True)
+
+
+def batched_single_label_nms(
+    pred: torch.Tensor,
+    conf_threshold: float = 0.25,
+    iou_threshold: float = 0.7,
+    max_det: int = 300,
+    pre_nms_topk: int = 1024,
+) -> Tuple[torch.Tensor, ...]:
+    """Batched best-class NMS over (B, A, 4+nc) xyxy boxes in pixels and
+    class scores. Each anchor offers its best class (the lowest index on
+    ties) gated at ``conf_threshold``; the top ``pre_nms_topk`` by score
+    (lowest anchor first on ties, as ``lax.top_k`` orders them),
+    class-offset by 7680 px, go through ``dispatch_batched_nms``.
+
+    Returns fixed-shape (boxes (B, max_det, 4) xyxy, scores, classes
+    int32, valid)."""
+    cls_scores = pred[..., 4:]
+    best_score = cls_scores.amax(-1)
+    best_cls = cls_scores.argmax(-1).to(torch.int32)
+    gated = torch.where(best_score > conf_threshold, best_score,
+                        torch.zeros_like(best_score))
+    k = min(pre_nms_topk, gated.shape[1])
+    top_scores, top_idx = torch.sort(gated, dim=1, descending=True,
+                                     stable=True)
+    top_scores, top_idx = top_scores[:, :k].contiguous(), top_idx[:, :k]
+    top_boxes = torch.gather(pred[..., :4], 1,
+                             top_idx[..., None].expand(-1, -1, 4))
+    top_cls = torch.gather(best_cls, 1, top_idx)
+    off = top_boxes + top_cls[..., None].to(top_boxes.dtype) * 7680.0
+    idx, valid = dispatch_batched_nms(off, top_scores, iou_threshold,
+                                      max_det)
+    idx = idx.long()
+    out_boxes = torch.gather(top_boxes, 1, idx[..., None].expand(-1, -1, 4))
+    out_scores = torch.gather(top_scores, 1, idx)
+    out_scores = torch.where(valid, out_scores, torch.zeros_like(out_scores))
+    out_cls = torch.gather(top_cls, 1, idx)
+    valid = valid & (out_scores > conf_threshold)
+    out_boxes = torch.where(valid[..., None], out_boxes,
+                            torch.zeros_like(out_boxes))
+    return out_boxes, out_scores, out_cls, valid

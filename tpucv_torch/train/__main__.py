@@ -19,7 +19,7 @@ from tpucv_torch.builder import export_from_registry
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tpucv_torch.train")
     parser.add_argument("--model", type=str, required=True,
-                        help="yolo8_det, yolo8_seg or yolo8_pose")
+                        help="yolo8_det, yolo8_seg, yolo8_pose or yolo7")
     parser.add_argument("--max-steps", type=int, default=None,
                         help="stop after N optimizer steps (smoke runs)")
     parser.add_argument("--n-model", type=int, default=None,
