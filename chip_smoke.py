@@ -5,12 +5,14 @@ probes, the YOLOv8 training step, the YOLOv8 trainer, predict, evaluate
 and in-training mAP on the trainer's checkpoint, YOLOv8-seg and
 YOLOv8-pose through their trainers, predict and evaluate, int8
 post-training quantization of all three (parity, bench, serve, predict,
-evaluate), and YOLOv7-l through its forward, decode, trainer, predict,
-serve, evaluate, in-training mAP and int8 path.
+evaluate), YOLOv7-l through its forward, decode, trainer, predict,
+serve, evaluate, in-training mAP and int8 path, and SSD300 through the
+same paths.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing one JSON line (its "t_s": the seconds since the
+script started); any failure exits non-zero:
 
 1. card     the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    builds every CUDA source of the port (one nvcc each, in
@@ -28,10 +30,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
             card is held against the CPU's. Then a server (make_server,
             batch 8) answers 16 concurrent raw-RGB requests; launch counts
             are zeroed just before the requests and read just after. The
-            served images' NMS candidates, through the kernels and through
-            their plain versions, must give identical keep masks and mask
-            words, and the plain route the server's detections (count and
-            classes). A batch of 8 is then timed stage by stage.
+            served images go through _batched_detections again, once with
+            each NMS call's candidates recorded and held kernel against
+            plain (identical keep masks and mask words), once through the
+            plain version: boxes, scores and classes equal to the kernel
+            route's, classes equal to the server's. A batch of 8 is then
+            timed stage by stage.
 5. bench    the bench.py:main program as tpucv_torch.bench runs it: B=128
             uint8 480x640, letterbox_static, forward, decode_boxes
             (pre_nms_topk=512), timed with CUDA events, device-resident and
@@ -196,9 +200,41 @@ Phases, each printing one JSON line; any failure exits non-zero:
             heads stay float), then yolo7_int8_predict: the predict CLI
             --int8 on yolo7_predict's 5 images (the scan), and the int8
             raw maps against the float ones (cosine >= 0.99).
+36. ssd_parity  ssd as shipped (SSD300-VGG16-BN, nc 21, 300), seed-0
+            weights: the f32 forward (B=2) on the card against the CPU, loc
+            and conf each within SSD_FWD_REL of its largest value; from the
+            CPU's outputs and 100 GT rows an image, the targets (cls and pos
+            bit-equal, loc within 1e-5) and the loss (num_pos equal, terms
+            within 1e-5 relative), card against CPU. The later phases
+            sharpen the conf heads by CLS_GAIN (every score 0 or 1).
+37. ssd_decode  decode_ssd on 8 serve images at 300 (K = 1,024): nms_keep
+            launched once, its detections equal to the plain route's on the
+            card and the CPU's; the SSD class-offset cases (B = 1, 8, 32).
+38. ssd_trainer  python -m tpucv_torch.train --model ssd's main as shipped
+            (300², B=16, M=100, bf16, device augmentation, mosaic, synthetic
+            data) for 8 steps, as seg_trainer.
+39. ssd_predict  the predict CLI on the serve images with the trained
+            weights sharpened (conf 0.7, K = 1,024: nms_keep, one launch an
+            image), equal to the plain route; ms an image by stage.
+40. ssd_serve  16 requests through make_server (B=8, nms_keep), as serve,
+            then ssd_serve_vs_plain as serve's check: keep masks of every
+            served batch kernel against plain, detections equal.
+41. ssd_evaluate  the evaluate CLI --model ssd on a VOC root written here
+            (65 JPEGs; B=32, conf 0.001, K = 1,024: nms_keep once a batch),
+            the stage split, every batch's NMS against the CPU's, and
+            nms_keep at B=32, K=1,024 timed against its plain version and
+            its bound.
+42. ssd_eval_map  trainer.evaluate_map on the ssd run with the sharpened
+            weights as its EMA (16 images, B=16, nms_keep), equal to the
+            plain route.
+43. ssd_int8  int8_parity's check for ssd (14 quantized convs, card
+            accumulators bit-equal to the plain route's), then
+            ssd_int8_predict: the predict CLI --int8 on ssd_predict's 5
+            images, and the int8 outputs against the float ones (cosine
+            >= INT8_COS_MIN_SSD).
 
 The line before the last holds {"kernels": [...]} (nms_keep, with its
-launches on every path that runs it, the int8 and YOLOv7 ones included,
+launches on every path that runs it, the int8, YOLOv7 and SSD ones included,
 add_one, conv3x3); the last line is
 {"ok": true, "device": {...}}. The whole output is also written to
 chiprun_out/chip_smoke.log. Without CUDA, or without the repository
@@ -228,6 +264,8 @@ YOLO7_GAIN = 1e6   # YOLOv7-l's init head logits are ~1e-5 (its activations
                    # shrink through ~100 identity BatchNorms and SiLUs)
 YOLO7_FWD_REL = 1e-4   # YOLOv7-l's f32 maps, card against CPU, each channel
                        # group against its largest value
+SSD_FWD_REL = 1e-4     # SSD300's f32 loc and conf, card against CPU, each
+                       # against its largest value
 ROOT = Path(__file__).resolve().parent
 AUG_PIXEL_TOL = 1e-5   # augment_batch, card against CPU, f32 values in [0, 1]
 TRAIN_STEPS = 40       # 10 epochs of the synthetic set's 4 batches of 16
@@ -236,6 +274,7 @@ STEADY_FROM = 8        # the trainer's window: steps 8-39 (epochs 2-9)
 INT8_MATCH_MIN = 0.5   # int8 serve / predict: float detections matched
 INT8_COS_MIN = 0.999   # int8 raw maps against float: tpucv's cosine bar
 INT8_CLASS_AGREE_MIN = 0.95   # and the best class at the live anchors
+INT8_COS_MIN_SSD = 0.99       # SSD300: 14 quantized VGG convs
 INT8_COS_MIN_YOLO7 = 0.99     # YOLOv7-l: 85 quantized convs in a chain
                               # (tpucv's own YOLOv7 bar is a max relative
                               # error under 0.1; its seed-0 maps at 640 on
@@ -244,7 +283,14 @@ LOOP_STAGES = ("fill_canvases", "h2d_letterbox_forward_topk", "scan",
                "d2h_records")
 
 
+T0 = time.perf_counter()    # the script's start, for the phases' "t_s"
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's carries ``t_s``, the seconds since the
+    script started, when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -338,6 +384,41 @@ def sharpen_yolo7_(model) -> None:
             per_anchor = 5 + model.nc
             head.weight.view(model.na, per_anchor, -1)[:, 4:] *= YOLO7_GAIN
             head.bias.view(model.na, per_anchor)[:, 4:] = 0.0
+
+
+def sharpen_ssd_(model) -> None:
+    """Zero SSD's conf heads' biases and scale their kernels by CLS_GAIN, in
+    place: each prior's softmax goes to 1 on one class (the background
+    included) and 0 on the rest, so every score is 0 or 1."""
+    import torch
+
+    with torch.no_grad():
+        for conf in model.confs:
+            conf.bias.zero_()
+            conf.weight.mul_(CLS_GAIN)
+
+
+def yolo7_int8_outputs(algo, f_maps, q_maps):
+    """YOLOv7's float and int8 raw maps by level, and each anchor's class
+    scores (objectness x class, after the sigmoid), for
+    phase_family_int8_predict."""
+    na, no = algo.anchors.shape[1], 5 + algo.nc
+    groups, scores = {}, []
+    for i, (f, q) in enumerate(zip(f_maps, q_maps)):
+        groups[f"P{i + 3}"] = (f, q)
+        fs, qs = (t.float().reshape(*t.shape[:3], na, no).sigmoid()
+                  for t in (f, q))
+        scores.append((fs[..., 4:5] * fs[..., 5:], qs[..., 4:5] * qs[..., 5:]))
+    return groups, scores
+
+
+def ssd_int8_outputs(algo, f_out, q_out):
+    """SSD's float and int8 loc and conf apart, and each prior's class
+    scores (the softmax, the background dropped), for
+    phase_family_int8_predict."""
+    groups = dict(zip(("loc", "conf"), zip(f_out, q_out)))
+    return groups, [tuple(t[1].float().softmax(-1)[..., 1:]
+                          for t in (f_out, q_out))]
 
 
 def nvidia_smi() -> str:
@@ -492,28 +573,35 @@ def write_voc_root(root: Path, n: int) -> int:
     return n
 
 
-# the trainer phases' families: the arch field and M as shipped, the terms
-# each logs, the term evaluate_loop must report, the phase's name and how
-# the run's final weights are sharpened for predict and evaluate
+# the trainer phases' families: the arch field, input size and M as
+# shipped, the terms each logs, the term evaluate_loop must report, the
+# phase's name and how the run's final weights are sharpened for predict
+# and evaluate
 TRAINED = {
-    "yolo8_seg": dict(arch=("model_type", "n"), M=48,
+    "yolo8_seg": dict(arch=("model_type", "n"), size=640, M=48,
                       terms=("loss", "box_loss", "cls_loss", "dfl_loss",
                              "mask_loss"), val="val_mask_loss",
                       phase="seg_trainer", sharpen=sharpen_,
                       desc="YOLOv8n, 640, B=16, M=48, bf16, no device "
                            "augmentation, synthetic data"),
-    "yolo8_pose": dict(arch=("model_type", "n"), M=32,
+    "yolo8_pose": dict(arch=("model_type", "n"), size=640, M=32,
                        terms=("loss", "box_loss", "cls_loss", "dfl_loss",
                               "kpt_loss", "kobj_loss"), val="val_kpt_loss",
                        phase="pose_trainer", sharpen=sharpen_,
                        desc="YOLOv8n, 640, B=16, M=32, bf16, no device "
                             "augmentation, synthetic data"),
-    "yolo7": dict(arch=("phi", "l"), M=100,
+    "yolo7": dict(arch=("phi", "l"), size=640, M=100,
                   terms=("loss", "box_loss", "obj_loss", "cls_loss"),
                   val="val_obj_loss", phase="yolo7_trainer",
                   sharpen=sharpen_yolo7_,
                   desc="YOLOv7-l, nc 20, 640, B=16, M=100, bf16, device "
                        "augmentation, mosaic 0.5, synthetic data"),
+    "ssd": dict(arch=("backbone", "vgg16"), size=300, M=100,
+                terms=("loss", "loc_loss", "conf_loss", "num_pos"),
+                val="val_conf_loss", phase="ssd_trainer",
+                sharpen=sharpen_ssd_,
+                desc="SSD300-VGG16-BN, nc 21, 300, B=16, M=100, bf16, "
+                     "device augmentation, mosaic 0.5, synthetic data"),
 }
 
 
@@ -695,65 +783,61 @@ class Smoke:
 
     def phase_serve_vs_plain(self, algo, model, imgs, results,
                              phase="serve_vs_plain"):
-        """The served images' NMS candidates, again through the kernel and
-        through its plain version: identical keep masks, and the plain
-        route's detections (count and classes per image) equal the
-        server's."""
-        from tpucv_torch.algorithms.yolov8 import yolo_decode_args
-        from tpucv_torch.decode.yolov8 import topk_candidates
-        from tpucv_torch.ops.cuda_nms import nms_keep_reference, select_kept
-        from tpucv_torch.ops.preprocess import (host_letterbox_geom,
-                                                letterbox_images,
-                                                normalize_images)
+        """The served images again through ``_batched_detections`` (B=8,
+        conf 0.25, as the server calls it), twice: with every nms_keep call
+        recorded, each batch's candidates then held kernel against plain
+        (``compare_keep``: keep masks and mask words); and with nms_keep's
+        plain version in its place: every image's boxes, scores and classes
+        equal to the kernel route's, and its classes equal to the server's.
+        Returns the first batch's candidates and its IoU threshold."""
+        from tpucv_torch.ops import cuda_nms
 
-        torch = self.torch
-        kw = yolo_decode_args(algo.cfg, algo.nc, None)
-        thr, conf = kw["iou_threshold"], kw["conf_threshold"]
+        kernel, cands = cuda_nms.nms_keep, []
+
+        def recorded(sb, ss, thr):
+            cands.append((sb, ss, thr))
+            self._swap_nms_keep(kernel)      # it counts under its own name
+            try:
+                return kernel(sb, ss, thr)
+            finally:
+                self._swap_nms_keep(recorded)
+
         index = [(im,) for im in imgs]
-        valid_cands, kept = [], []
-        capture = None
-        for start in range(0, len(imgs), 8):
-            idxs = list(range(start, start + 8))
-            canv, hw, _, _ = algo._fill_canvases(index, idxs, 8,
-                                                 algo.raw_canvas)
-            geom, hs = host_letterbox_geom(hw, algo.input_size)
-            with torch.inference_mode():
-                lb, _, _ = letterbox_images(
-                    torch.from_numpy(canv).to(self.dev),
-                    torch.from_numpy(hw).to(self.dev), algo.input_size,
-                    geom=torch.from_numpy(geom).to(self.dev),
-                    scale=torch.from_numpy(hs).to(self.dev))
-                x = normalize_images(lb, algo.dtype)
-                with torch.autocast("cuda", dtype=torch.bfloat16):
-                    raw = model(x)
-                boxes, scores, cls = topk_candidates(
-                    raw, kw["reg_max"], kw["strides"], conf,
-                    kw["pre_nms_topk"])
-                off = (boxes + cls[..., None].float() * 7680.0).contiguous()
-                self.compare_keep(off, scores, thr,
-                                  f"served batch {start // 8}")
-                idx, valid = select_kept(nms_keep_reference(off, scores, thr),
-                                         scores, None, kw["max_det"])
-                idx = idx.long()
-                valid = valid & (torch.gather(scores, 1, idx) > conf)
-                plain_cls = torch.gather(cls, 1, idx)
-            for j, i in enumerate(idxs):
-                served = sorted(d["class_id"]
-                                for d in results[i][1]["detections"])
-                plain = sorted(plain_cls[j][valid[j]].tolist())
-                check(served == plain, f"image {i}: served classes {served} "
-                                       f"!= plain NMS classes {plain}")
-            if capture is None:
-                capture = (off, scores)
-            valid_cands += (scores > 0).sum(1).tolist()
-            kept += valid.sum(1).tolist()
+        runs = []
+        for fn in (recorded, cuda_nms.nms_keep_reference):
+            self._swap_nms_keep(fn)
+            try:
+                runs.append(list(algo._batched_detections(
+                    model, index, 8, 0.25)))
+            finally:
+                self._swap_nms_keep(kernel)
+        check(len(cands) == -(-len(imgs) // 8),
+              f"{phase}: {len(cands)} NMS calls for {len(imgs)} images")
+        for k, (sb, ss, thr) in enumerate(cands):
+            self.compare_keep(sb, ss, thr, f"{phase} batch {k}")
+        got, plain = runs
+        check(len(got) == len(plain) == len(imgs), f"{phase}: {len(got)} "
+                                                   f"images")
+        for a, b in zip(got, plain):
+            check(a[0] == b[0] and all(
+                np.array_equal(x, y) for x, y in zip(a[1:], b[1:])),
+                f"{phase} image {a[0]}: detections through nms_keep differ "
+                f"from the plain route's")
+            served = sorted(d["class_id"]
+                            for d in results[a[0]][1]["detections"])
+            check(served == sorted(a[3].tolist()),
+                  f"{phase} image {a[0]}: served classes {served} != "
+                  f"{sorted(a[3].tolist())}")
+        valid_cands = [n for _, ss, _ in cands
+                       for n in (ss > 0).sum(1).tolist()]
+        kept = [len(a[3]) for a in got]
         check(all(v > 0 for v in valid_cands), "no valid candidates")
         check(any(k < v for k, v in zip(kept, valid_cands)),
               "NMS suppressed nothing")
-        emit({"phase": phase, "K": kw["pre_nms_topk"],
+        emit({"phase": phase, "K": cands[0][1].shape[1],
               "valid_candidates": valid_cands, "kept": kept,
               "identical": True})
-        return capture, thr
+        return cands[0][:2], cands[0][2]
 
     def phase_breakdown(self, algo, model, imgs, reps=5):
         """Where a served batch of 8 spends its time, on the host clock with
@@ -1235,7 +1319,7 @@ class Smoke:
 
     def phase_family_trainer(self, name, steps=8, window=(4, 7)):
         """``python -m tpucv_torch.train --model <name>``'s main at the
-        shipped config (640², B=16, bf16, no device augmentation, the
+        shipped config (640², SSD's 300², B=16, bf16, the
         synthetic fallback: 4 batches an epoch) for ``steps`` steps, 2
         epochs, with evaluate_loop and the saves at epoch 2 (the
         intervals set to 2 for the smoke). The losses, all finite; images/s
@@ -1257,7 +1341,7 @@ class Smoke:
             cfg, algo, cls = export_from_registry(model_name)
             t, d = cfg.train, cfg.dataset
             field, value = fam["arch"]
-            check(d.input_size == 640 and t.batch_size == 16
+            check(d.input_size == fam["size"] and t.batch_size == 16
                   and t.mixed_precision
                   and getattr(cfg.arch, field) == value
                   and d.max_num_boxes == fam["M"],
@@ -1337,13 +1421,14 @@ class Smoke:
 
     def phase_family_predict(self, name, ckpt, imgs, reps=5):
         """``python -m tpucv_torch.predict``'s main on the smoke's 4 JPEGs
-        and a PNG with the sharpened checkpoint (conf 0.25, K <= 1024):
-        nms_keep's count zeroed just before, read just after; the drawn
-        files exist; detections, masks and keypoints equal to the same run
-        through nms_keep's plain version; then ms an image split into
-        decode, letterbox, device (H2D, forward, decode, NMS), masks or
-        keypoints (D2H, the masks' product, crop, upsample and overlay, or
-        the keypoints' mapping and dots) and draw (median of ``reps``)."""
+        and a PNG with the sharpened checkpoint (conf 0.25, K <= 1024; SSD:
+        conf 0.7, K = 1,024): nms_keep's count zeroed just before, read just
+        after; the drawn files exist; detections, masks and keypoints equal
+        to the same run through nms_keep's plain version; then ms an image
+        split into decode, letterbox, device (H2D, forward, decode, NMS),
+        masks or keypoints (D2H, the masks' product, crop, upsample and
+        overlay, or the keypoints' mapping and dots; none for SSD) and draw
+        (median of ``reps``)."""
         import cv2
 
         from tpucv_torch import predict as cli
@@ -1351,9 +1436,9 @@ class Smoke:
         from tpucv_torch.ckpt.checkpoint import CheckPoint
         from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
 
-        torch = self.torch
-        family = name.split("_")[1]
-        extra = {"seg": "masks", "pose": "keypoints"}[family]
+        family = name.split("_")[-1]                 # seg, pose, ssd
+        extra = {"seg": "masks", "pose": "keypoints"}.get(family)
+        tag = f"_{family}@" if extra else "@"        # the drawn file's name
         out = ROOT / "saves" / "chip_smoke" / name / "predict"
         out.mkdir(parents=True, exist_ok=True)
         srcs = []
@@ -1371,22 +1456,23 @@ class Smoke:
                                      f"times for {len(srcs)} images")
         for src, r in zip(srcs, got):
             check(r["saved"] and Path(r["saved"]).is_file()
-                  and Path(r["saved"]).name.startswith(
-                      f"{Path(src).stem}_{family}@"),
+                  and Path(r["saved"]).name.startswith(Path(src).stem + tag),
                   f"{src}: no drawn file ({r['saved']})")
         was = self._swap_nms_keep(nms_keep_reference)
         try:
             plain = cli.main([*argv, "--dst", str(out / "plain")])
         finally:
             self._swap_nms_keep(was)
+        keys = ("classes", "boxes", "scores") + ((extra,) if extra else ())
         for src, a, b in zip(srcs, got, plain):
-            for key in ("classes", "boxes", "scores", extra):
+            for key in keys:
                 check(np.array_equal(a[key], b[key]),
                       f"{src}: {key} through nms_keep differ from the plain "
                       f"route's")
         n_dets = [len(r["classes"]) for r in got]
         check(min(n_dets) > 0, f"{name}: an image got no detection: {n_dets}")
-        check(all(r[extra].shape[0] == n for r, n in zip(got, n_dets)),
+        check(not extra or all(r[extra].shape[0] == n for r, n in
+                               zip(got, n_dets)),
               f"{name}: {extra} do not match the detections")
 
         cfg, algo_cls, _ = export_from_registry(name)
@@ -1394,14 +1480,14 @@ class Smoke:
         model = algo.init_variables()
         model.load_state_dict(CheckPoint.load_pure(ckpt))
         infer = algo.make_predict_infer_fn()
-        mod = sys.modules[type(algo).__module__]
+        mod = sys.modules[type(algo).predict.__module__]
         rec = StageRecorder(self.sync)
         for attr, label in (("read_image", "decode"),
                             ("letter_box", "letterbox"),
                             ("show_detection_results", "draw")):
             rec.wrap(mod, attr, label)
         laps = {k: [] for k in ("decode", "letterbox", "device", extra,
-                                "draw")}
+                                "draw") if k}
         try:
             timed_infer = rec.wrapped(infer, "device")
             for _ in range(reps):
@@ -1412,8 +1498,9 @@ class Smoke:
                     ev = {k: (a, z) for k, a, z in rec.events}
                     for k in ("decode", "letterbox", "device", "draw"):
                         laps[k].append((ev[k][1] - ev[k][0]) * 1e3)
-                    laps[extra].append((ev["draw"][0] - ev["device"][1])
-                                       * 1e3)
+                    if extra:
+                        laps[extra].append((ev["draw"][0] - ev["device"][1])
+                                           * 1e3)
         finally:
             rec.restore()
         med = {k: float(np.median(v)) for k, v in laps.items()}
@@ -1937,18 +2024,20 @@ class Smoke:
                 stages[k].append((z - a) * 1e3)
         return stages, scans, stats
 
-    def _scans_equal_cpu(self, scans, stages, n_img, batch, dispatch):
+    def _scans_equal_cpu(self, scans, stages, n_img, batch, dispatch,
+                         K=4096):
         """Every batch the evaluate CLI scanned (``_recorded_evaluate``),
-        with K = 4096 and more live candidates than ``max_det``, held
-        against ``dispatch`` on the CPU from the same candidates: idx and
-        valid equal. Returns (detections kept an image, the loop's ms,
-        the mean ms of each stage over the full batches)."""
+        with ``K`` candidates (4096: the scan; SSD's 1,024: nms_keep) and
+        more live ones than ``max_det``, held against ``dispatch`` on the
+        CPU from the same candidates (at K <= 1,024 the kernel's plain
+        version): idx and valid equal. Returns (detections kept an image,
+        the loop's ms, the mean ms of each stage over the full batches)."""
         torch = self.torch
         check(len(scans) == len(stages["images"]) == -(-n_img // batch),
               f"{len(scans)} scans for batches of {stages['images']}")
         kept = []
         for k, (off, scores, thr, max_det, idx, valid) in enumerate(scans):
-            check(scores.shape[1] == 4096 and int(
+            check(scores.shape[1] == K and int(
                 (scores > 0).sum(1).min()) > max_det,
                   f"batch {k}: the scan had little work: K "
                   f"{scores.shape[1]}, {int((scores > 0).sum())} valid")
@@ -2164,6 +2253,8 @@ class Smoke:
             if name == "yolo8_pose":
                 wide = [p for p in padded if p[3] == 51]
                 check(len(wide) == 6, f"pose: 51-wide convs padded {wide}")
+            if name == "ssd":
+                check(n_q == 14, f"ssd: {n_q} quantized convs, not 14")
             rows[name] = {"count_quantized": n_q, "convs_compared": len(seen),
                           "accumulators_bit_equal": True,
                           "max_abs_accumulator": peak,
@@ -2681,16 +2772,20 @@ class Smoke:
               "nvidia_smi": nvidia_smi()})
         return launches
 
-    def phase_yolo7_evaluate(self, ckpt, batch=32):
-        """``python -m tpucv_torch.evaluate --model yolo7``'s main on a VOC
+    def phase_family_evaluate(self, name, ckpt, K, batch=32):
+        """``python -m tpucv_torch.evaluate --model <name>``'s main on a VOC
         root written here (65 640x480 JPEGs, some objects difficult) with
-        the sharpened checkpoint (B=32, conf 0.001: K = 4096, the scan): the
-        VOC mAP and its COCO cross-summary, images/s; nms_keep's count 0.
-        Then the CLI once more with recorders around its own stages
+        the sharpened checkpoint (B=32, conf 0.001; yolo7 at K = 4096: the
+        scan, nms_keep's count 0; ssd at K = 1,024: nms_keep, one launch a
+        batch): the VOC mAP and its COCO cross-summary, images/s. Then the
+        CLI once more with recorders around its own stages
         (``_recorded_evaluate``): ms a full batch split into canvas fill,
-        H2D + letterbox + forward + top-k, the scan and D2H + records, the
-        COCO cross-summary's COCOeval; every batch's scan equal to the
-        CPU's from the candidates the CLI gave it."""
+        H2D + letterbox + forward + top-k, the NMS (synced at both edges)
+        and D2H + records, the COCO cross-summary's COCOeval; every batch's
+        NMS equal to the CPU's from the candidates the CLI gave it (at K <=
+        1,024 the kernel's plain version). At K <= 1,024, nms_keep on the
+        first batch's candidates is then timed against its plain version
+        and its bound (``time_kernel``)."""
         import os
 
         from tpucv_torch import evaluate as cli
@@ -2699,21 +2794,20 @@ class Smoke:
         from tpucv_torch.ops import nms as nms_mod
         from tpucv_torch.ops.cuda_nms import nms_keep
 
-        base = ROOT / "saves" / "chip_smoke" / "yolo7" / "evaluate"
+        base = ROOT / "saves" / "chip_smoke" / name / "evaluate"
         root = base / "voc"
         n_img = write_voc_root(root, 65)
-        argv = ["--model", "yolo7", "--ckpt", ckpt, "--batch-size",
-                str(batch)]
+        argv = ["--model", name, "--ckpt", ckpt, "--batch-size", str(batch)]
         env_was, cwd = os.environ.get("TPUCV_VOC_ROOT"), os.getcwd()
         os.environ["TPUCV_VOC_ROOT"] = str(root)
         os.chdir(base)
         try:
-            nms_keep.launches = 0
+            nms_keep.launches = 0            # just before the path
             t0 = time.perf_counter()
             res = cli.main(argv)
             self.sync()
             wall = time.perf_counter() - t0
-            launches = nms_keep.launches
+            launches = nms_keep.launches     # just after
             stages, scans, rec_res = self._recorded_evaluate(
                 cli, argv, DetectionAlgorithm, nms_mod, COCOMeanAP)
         finally:
@@ -2722,38 +2816,57 @@ class Smoke:
                 os.environ.pop("TPUCV_VOC_ROOT")
             else:
                 os.environ["TPUCV_VOC_ROOT"] = env_was
-        check(launches == 0, f"yolo7 evaluate: nms_keep launched {launches} "
-                             f"times at K=4096")
+        on_kernel = K <= 1024
+        n_batches = -(-n_img // batch)
+        check(launches == (n_batches if on_kernel else 0),
+              f"{name} evaluate: nms_keep launched {launches} times for "
+              f"{n_batches} batches at K={K}")
         check(np.isfinite(res["mAP"]) and len(res["coco"]) == 12
               and all(np.isfinite(v) for v in res["coco"].values()),
-              f"yolo7 evaluate: {res['mAP']}, {res['coco']}")
+              f"{name} evaluate: {res['mAP']}, {res['coco']}")
         check(rec_res["mAP"] == res["mAP"], "the recorded run's mAP differs")
         kept, loop_ms, per_full_batch = self._scans_equal_cpu(
-            scans, stages, n_img, batch, nms_mod.dispatch_batched_nms)
-        emit({"phase": "yolo7_evaluate", "images": n_img, "batch": batch,
-              "K": 4096, "mAP": res["mAP"], "coco": res["coco"],
+            scans, stages, n_img, batch, nms_mod.dispatch_batched_nms, K=K)
+        timed = {}
+        if on_kernel:
+            off, scores, thr = scans[0][:3]
+            row = self.time_kernel(off, scores, thr,
+                                   f"{name}_evaluate_B{batch}_K{K}")
+            timed[f"nms_keep_B{batch}_K{K}"] = {k: row[k] for k in (
+                "ms", "build_ms", "walk_ms", "plain_ms", "bound_ms",
+                "bound_by", "valid", "kept")}
+        nms = "nms_keep" if on_kernel else "scan"
+
+        def named(stage_map):
+            return {nms if k == "scan" else k: v for k, v in stage_map.items()}
+
+        emit({"phase": f"{name}_evaluate", "images": n_img, "batch": batch,
+              "K": K, "nms": nms, "mAP": res["mAP"], "coco": res["coco"],
               "cli_wall_s": wall, "img_per_s_cli": n_img / wall,
               "nms_keep_launches": launches,
               "kept_per_image": [min(kept), float(np.mean(kept)), max(kept)],
               "recorded_loop_img_per_s": n_img / loop_ms * 1e3,
-              "ms_per_full_batch": per_full_batch, "ms_by_batch": stages,
-              "scan_share_of_loop": sum(stages["scan"]) / loop_ms,
-              "scan_share_of_full_batch": per_full_batch["scan"] / sum(
+              "ms_per_full_batch": named(per_full_batch),
+              "ms_by_batch": named(stages),
+              "nms_share_of_loop": sum(stages["scan"]) / loop_ms,
+              "nms_share_of_full_batch": per_full_batch["scan"] / sum(
                   per_full_batch[k] for k in LOOP_STAGES),
-              "scan_equals_cpu_batches": len(scans),
+              "nms_equals_cpu_batches": len(scans), **timed,
               "nvidia_smi": nvidia_smi()})
         return launches
 
-    def phase_yolo7_eval_map(self, run, ckpt, reps=3):
-        """``trainer.evaluate_map`` on the yolo7 run's final state with the
+    def phase_family_eval_map(self, run, ckpt, phase, K, reps=3):
+        """``trainer.evaluate_map`` on a family's run (yolo7, ssd) with the
         sharpened weights handed over as its EMA (16 synthetic val images,
-        B=16, conf 0.01: K = 4096, the scan): VOC mAP@0.5, nms_keep's count
-        0, the trained weights unchanged, ms a call (median of
-        ``reps``)."""
+        B=16, conf 0.01). yolo7 at 640: K = 4096, the scan, nms_keep's count
+        0; ssd: K = 1,024, nms_keep's count (zeroed just before the call,
+        read just after) above 0 and the detections equal to the same call
+        through nms_keep's plain version. The VOC mAP@0.5, the trained
+        weights unchanged, ms a call (median of ``reps``)."""
         import types
 
         from tpucv_torch.ckpt.checkpoint import CheckPoint
-        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
 
         torch = self.torch
         trainer = run["trainer"]
@@ -2764,15 +2877,42 @@ class Smoke:
             ema={n: sharp[n].to(self.dev) for n in state.params})
         live = {k: v.detach().clone() for k, v in
                 state.model.state_dict().items()}
-        nms_keep.launches = 0                # just before the path
-        t0 = time.perf_counter()
-        res = trainer.evaluate_map(view)
-        first_ms = (time.perf_counter() - t0) * 1e3
-        launches = nms_keep.launches         # just after
-        check(launches == 0, f"yolo7 evaluate_map: nms_keep launched "
-                             f"{launches} times at K=4096")
+        harness = trainer.algorithm._batched_detections
+        seen = []
+
+        def recorded(*args, **kw):
+            for item in harness(*args, **kw):
+                seen.append(item)
+                yield item
+
+        trainer.algorithm._batched_detections = recorded
+        try:
+            nms_keep.launches = 0            # just before the path
+            t0 = time.perf_counter()
+            res = trainer.evaluate_map(view)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launches = nms_keep.launches     # just after
+            got, seen[:] = list(seen), []
+            if K <= 1024:
+                was = self._swap_nms_keep(nms_keep_reference)
+                try:
+                    res_plain = trainer.evaluate_map(view)
+                finally:
+                    self._swap_nms_keep(was)
+                check(res == res_plain, f"{phase}: {res} != {res_plain}")
+                for a, b in zip(got, seen):
+                    check(a[0] == b[0] and all(
+                        np.array_equal(x, y) for x, y in zip(a[1:], b[1:])),
+                        f"{phase} image {a[0]}: detections through nms_keep "
+                        f"differ from the plain route's")
+                check(len(seen) == len(got), f"{phase}: {len(seen)} images")
+        finally:
+            trainer.algorithm._batched_detections = harness
+        check(launches > 0 if K <= 1024 else launches == 0,
+              f"{phase}: nms_keep launched {launches} times at K={K}")
         check(set(res) == {"map50"} and np.isfinite(res["map50"]),
-              f"yolo7 evaluate_map gave {res}")
+              f"{phase} gave {res}")
+        check(sum(len(a[3]) for a in got) > 0, f"{phase}: no detection")
         check(all(torch.equal(v, live[k]) for k, v in
                   state.model.state_dict().items()),
               "evaluate_map changed the trained model")
@@ -2781,27 +2921,29 @@ class Smoke:
             t0 = time.perf_counter()
             trainer.evaluate_map(view)
             times.append((time.perf_counter() - t0) * 1e3)
-        emit({"phase": "yolo7_eval_map", "images": len(trainer.val_index),
-              "batch": trainer.cfg.train.batch_size, "K": 4096,
+        emit({"phase": phase, "images": len(trainer.val_index),
+              "batch": trainer.cfg.train.batch_size, "K": K,
               "result": res, "nms_launches": launches,
+              "plain_route_equal": K <= 1024,
               "first_call_ms": first_ms,
               "ms_per_call": float(np.median(times)), "ms_runs": times})
         return launches
 
-    def phase_yolo7_int8_predict(self, ckpt):
-        """``python -m tpucv_torch.predict --model yolo7 --int8`` on the
-        yolo7 predict phase's 5 images (calibrated on them; K = 4096, the
-        scan): drawn files, finite detections, nms_keep's count 0; the
-        share of the float run's detections matched (as int8_predict,
-        reported, not gated: with the head sharpened by YOLO7_GAIN an
-        anchor scores 1 or 0 by the sign of a logit near 0, and the top-k
-        takes the lowest indices among the 1s, so the kept set follows
-        every flipped sign). Then the raw maps of the CLI's int8 model
-        (calibrated again on the same images) against the float model's
-        on each image: per level max relative error and cosine (at least
-        INT8_COS_MIN_YOLO7), the share of the float run's live anchors
-        (score > conf) live in int8 too and the best class agreeing on
-        them."""
+    def phase_family_int8_predict(self, name, ckpt, K, outputs, cos_min):
+        """``python -m tpucv_torch.predict --model <name> --int8`` on the
+        family's predict phase's 5 images (calibrated on them), beside the
+        float run: drawn files, finite detections, nms_keep's count (one an
+        image at K <= 1,024; 0 at yolo7's K = 4096, the scan); the share of
+        the float run's detections matched (as int8_predict, reported, not
+        gated: with the head sharpened an anchor scores 1 or 0 by the sign
+        of a logit near 0, and the top-k takes the lowest indices among the
+        1s, so the kept set follows every flipped sign). Then the outputs of
+        the CLI's int8 model (calibrated again on the same images) against
+        the float model's on each image, grouped by the family's
+        ``outputs`` (yolo7_int8_outputs, ssd_int8_outputs): each group's
+        max relative error and cosine (at least ``cos_min``), the share of
+        the float run's live anchors (best class score > conf) live in int8
+        too and the best class agreeing on them."""
         from tpucv_torch import predict as cli
         from tpucv_torch.builder import export_from_registry
         from tpucv_torch.ckpt.checkpoint import CheckPoint
@@ -2810,68 +2952,225 @@ class Smoke:
         from tpucv_torch.utils.image_process import letter_box, read_image
 
         torch = self.torch
-
-        out = ROOT / "saves" / "chip_smoke" / "yolo7" / "predict"
+        out = ROOT / "saves" / "chip_smoke" / name / "predict"
         srcs = sorted(str(p) for p in out.glob("img*.*"))
-        check(len(srcs) == 5, f"yolo7 predict's images: {srcs}")
-        argv = ["--model", "yolo7", "--ckpt", ckpt, "--src", *srcs]
+        check(len(srcs) == 5, f"{name} predict's images: {srcs}")
+        argv = ["--model", name, "--ckpt", ckpt, "--src", *srcs]
         ref = cli.main([*argv, "--dst", str(out / "float")])
         nms_keep.launches = 0                # just before the path
         t0 = time.perf_counter()
         got = cli.main([*argv, "--int8", "--dst", str(out / "int8")])
         wall = time.perf_counter() - t0
         launches = nms_keep.launches         # just after
-        check(launches == 0, f"yolo7 int8 predict: nms_keep launched "
-                             f"{launches} times at K=4096")
+        check(launches == (len(srcs) if K <= 1024 else 0),
+              f"{name} int8 predict: nms_keep launched {launches} times for "
+              f"{len(srcs)} images at K={K}")
         check(all(r["saved"] and Path(r["saved"]).is_file() for r in got),
-              "a yolo7 int8 image was not drawn")
+              f"a {name} int8 image was not drawn")
         check(all(np.isfinite(r["boxes"]).all() for r in got)
               and sum(len(r["classes"]) for r in got) > 0,
-              "yolo7 int8 predict: no finite detections")
+              f"{name} int8 predict: no finite detections")
         pairs = ([(r["boxes"], r["classes"]) for r in ref],
                  [(r["boxes"], r["classes"]) for r in got])
-        cfg, algo_cls, _ = export_from_registry("yolo7")
+        cfg, algo_cls, _ = export_from_registry(name)
         algo = algo_cls(cfg, device=self.dev)
         fmodel = algo.init_variables()
         fmodel.load_state_dict(CheckPoint.load_pure(ckpt))
         qmodel = algo.quantize_variables(fmodel, [(p,) for p in srcs],
                                          n_images=len(srcs),
                                          batch_size=len(srcs))
-        s_, na, no = algo.input_size, algo.anchors.shape[1], 5 + algo.nc
-        conf = cfg.decode.conf_threshold
-        rel, cos, live_f, live_both, agree = [], [], 0, 0, 0
+        s_, conf = algo.input_size, cfg.decode.conf_threshold
+        errs, live_f, live_both, agree = {}, 0, 0, 0
         for p in srcs:
             x = torch.from_numpy(letter_box(read_image(p), (s_, s_))[0][None])
             with torch.inference_mode(), \
                     torch.autocast("cuda", dtype=torch.bfloat16):
                 x = normalize_images(x.to(self.dev), algo.dtype)
-                maps = list(zip(fmodel(x), qmodel(x)))
-            for f, q in maps:
+                groups, scores = outputs(algo, fmodel(x), qmodel(x))
+            for key, (f, q) in groups.items():
                 f, q = f.float(), q.float()
-                rel.append(float((q - f).abs().max() / f.abs().max()))
-                cos.append(float((f * q).sum() / (f.norm() * q.norm())))
-                f, q = (t.reshape(*t.shape[:3], na, no).sigmoid()
-                        for t in (f, q))
-                fs, qs = (t[..., 4:5] * t[..., 5:] for t in (f, q))
-                lf = fs.amax(-1) > conf
-                lq = qs.amax(-1) > conf
+                errs.setdefault(key, []).append(
+                    (float((q - f).abs().max() / f.abs().max()),
+                     float((f * q).sum() / (f.norm() * q.norm()))))
+            for fs, qs in scores:
+                lf, lq = fs.amax(-1) > conf, qs.amax(-1) > conf
                 live_f += int(lf.sum())
                 live_both += int((lf & lq).sum())
                 agree += int((fs.argmax(-1) == qs.argmax(-1))[lf].sum())
-        raw = {"max_rel_err": max(rel), "cosine_min": min(cos),
-               "float_live_anchors": live_f,
-               "live_in_int8_share": live_both / max(live_f, 1),
-               "class_agree_share": agree / max(live_f, 1)}
-        check(min(cos) >= INT8_COS_MIN_YOLO7,
-              f"yolo7 int8 raw maps part from the float ones: {raw}")
-        emit({"phase": "yolo7_int8_predict", "images": len(srcs),
-              "raw_maps": raw,
+        raw = {k: {"max_rel_err": max(r for r, _ in v),
+                   "cosine_min": min(c for _, c in v)}
+               for k, v in errs.items()}
+        cos = min(v["cosine_min"] for v in raw.values())
+        raw.update(float_live_anchors=live_f,
+                   live_in_int8_share=live_both / max(live_f, 1),
+                   class_agree_share=agree / max(live_f, 1))
+        check(cos >= cos_min,
+              f"{name} int8 outputs part from the float ones: {raw}")
+        emit({"phase": f"{name}_int8_predict", "images": len(srcs),
+              "raw_maps": raw, "cosine_min": cos,
               "nms_launches": launches, "cli_wall_s": wall,
               "detections_int8": [len(r["classes"]) for r in got],
               "detections_float": [len(r["classes"]) for r in ref],
               "float_matched_share": self.matched_share(*pairs),
               "float_matched_share_any_class": self.matched_share(
                   *pairs, same_class=False)})
+        return launches
+
+    # ------------------------------------------------------------- SSD --
+    def ssd_setup(self):
+        """ssd as shipped: SSD300-VGG16-BN, nc 21 (20 VOC classes and the
+        background), 300, bf16, decode at conf 0.7, IoU 0.5, max_det 100,
+        K 1,024; the algorithm on the card and its seed-0 model."""
+        from tpucv_torch.builder import export_from_registry
+
+        cfg, algo_cls, _ = export_from_registry("ssd")
+        d = cfg.decode
+        check(cfg.arch.input_size == cfg.dataset.input_size == 300
+              and cfg.num_classes == 21 and cfg.train.mixed_precision
+              and cfg.loss.alpha == 0.5
+              and (d.conf_threshold, d.iou_threshold, d.max_det,
+                   d.pre_nms_topk) == (0.7, 0.5, 100, 1024),
+              "ssd config is not as shipped")
+        algo = algo_cls(cfg, device=self.dev)
+        return algo, algo.init_variables(seed=0)
+
+    def phase_ssd_parity(self, algo, model):
+        """The f32 forward (TF32 off) of the seed-0 SSD300 at B=2 on the card
+        against the CPU, loc and conf apart, each within SSD_FWD_REL of its
+        own largest value; the forward's conv FLOPs and output elements an
+        image, counted by hooks on the CPU's run. Then, from the CPU's outputs and 100 GT rows an
+        image (some padded), the targets (``assign_ssd_targets``) card
+        against CPU: cls and pos bit-equal, loc within 1e-5 of its largest
+        value; and the loss (``build_loss``): num_pos equal, each term
+        within 1e-5 relative."""
+        import copy
+
+        from tpucv_torch.targets.ssd import assign_ssd_targets
+
+        torch = self.torch
+        cpu = torch.device("cpu")
+        x = torch.from_numpy(np.random.default_rng(3).random(
+            (2, 300, 300, 3), dtype=np.float32))
+        work = [0, 0]                  # multiply-adds, output elements
+
+        def count(mod, _, out):
+            work[0] += out.numel() * mod.weight[0].numel()
+            work[1] += out.numel()
+
+        with torch.inference_mode():
+            got = [t.cpu() for t in model(x.to(self.dev))]
+            on_cpu = copy.deepcopy(model).to(cpu).to(
+                memory_format=torch.contiguous_format)
+            hooks = [m.register_forward_hook(count) for m in
+                     on_cpu.modules() if isinstance(m, torch.nn.Conv2d)]
+            raw = on_cpu(x)
+            for h in hooks:
+                h.remove()
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              "ssd: non-finite outputs on the card")
+        rel = {k: float((g - c).abs().max() / c.abs().max())
+               for k, g, c in zip(("loc", "conf"), got, raw)}
+        rng = np.random.default_rng(4)
+        cxy = rng.uniform(10, 290, (2, 100, 2))
+        wh = rng.uniform(6, 250, (2, 100, 2))
+        gt = {"gt_bboxes": torch.from_numpy(np.clip(np.concatenate(
+                  [cxy - wh / 2, cxy + wh / 2], -1), 0, 300).astype(
+                  np.float32)),
+              "gt_labels": torch.from_numpy(rng.integers(0, 20, (2, 100))),
+              "gt_mask": torch.from_numpy(rng.random((2, 100)) < 0.3)}
+        targets, runs = [], []
+        for dev, a in ((cpu, type(algo)(algo.cfg, device=cpu)),
+                       (self.dev, algo)):
+            g = {k: v.to(dev) for k, v in gt.items()}
+            with torch.inference_mode():
+                targets.append([t.cpu() for t in assign_ssd_targets(
+                    g["gt_bboxes"] / 300.0, g["gt_labels"], g["gt_mask"],
+                    a.priors)])
+                total, parts = a.build_loss()([r.to(dev) for r in raw], g)
+            runs.append({"loss": float(total),
+                         **{k: float(v) for k, v in parts.items()}})
+        (cl, cc, cp), (gl, gc, gp) = targets
+        loc_err = float((gl - cl).abs().max() / cl.abs().max())
+        c, g = runs
+        terms = {k: abs(g[k] - v) / max(abs(v), 1e-12) for k, v in c.items()}
+        emit({"phase": "ssd_parity", "shapes": [list(t.shape) for t in got],
+              "forward_gflops_per_image": 2 * work[0] / x.shape[0] / 1e9,
+              "conv_outputs_per_image": work[1] // x.shape[0],
+              "forward_rel_err": rel, "targets_cls_pos_equal":
+                  bool(torch.equal(cc, gc) and torch.equal(cp, gp)),
+              "targets_positives": int(cp.sum()),
+              "targets_loc_rel_err": loc_err,
+              "targets_loc_bit_equal": bool(torch.equal(cl, gl)),
+              "loss_cpu": c, "loss_card": g,
+              "loss_max_rel_err": max(terms.values())})
+        check(max(rel.values()) < SSD_FWD_REL,
+              f"ssd: the f32 forward on the card differs from the CPU: {rel}")
+        check(torch.equal(cc, gc) and torch.equal(cp, gp) and int(cp.sum()),
+              "ssd: the targets' cls / pos on the card differ from the CPU's")
+        check(loc_err <= 1e-5, f"ssd: target loc card against CPU {loc_err}")
+        check(c["num_pos"] == g["num_pos"] > 0,
+              f"ssd: num_pos card {g['num_pos']} against CPU {c['num_pos']}")
+        check(max(terms.values()) <= 1e-5, f"ssd: loss card {g} against "
+                                           f"CPU {c}")
+
+    def phase_ssd_decode(self, algo, model, imgs):
+        """``decode_ssd`` on the sharpened model's bf16 outputs for 8 serve
+        images letterboxed to 300 (K = 1,024): nms_keep's count zeroed just
+        before, read just after (one launch); the same decode with
+        nms_keep's plain version in its place on the card, and on the CPU
+        from the same outputs: valid, classes and scores equal, boxes
+        equal on the card and within 1e-3 px on the CPU. Then the SSD cases
+        of ops/nms_cases.py (K = 1,024 at B = 1, 8, 32, class offsets up to
+        19 x 7680 px): keep masks and mask words, kernel against plain."""
+        from tpucv_torch.decode.ssd import decode_ssd
+        from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
+        from tpucv_torch.ops.nms_cases import ssd_cases
+        from tpucv_torch.ops.preprocess import normalize_images
+
+        torch = self.torch
+        d, a = algo.cfg.decode, algo.cfg.arch
+        kw = dict(input_size=a.input_size, conf_threshold=d.conf_threshold,
+                  iou_threshold=d.iou_threshold, max_det=d.max_det,
+                  pre_nms_topk=d.pre_nms_topk, variances=a.variances)
+        lb = self.letterboxed(algo, imgs[:8])
+        with torch.inference_mode():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                raw = model(normalize_images(lb, algo.dtype))
+            nms_keep.launches = 0            # just before the path
+            got = decode_ssd(*raw, algo.priors, **kw)
+            self.sync()
+            launches = nms_keep.launches     # just after
+            was = self._swap_nms_keep(nms_keep_reference)
+            try:
+                plain = decode_ssd(*raw, algo.priors, **kw)
+            finally:
+                self._swap_nms_keep(was)
+            ref = decode_ssd(*(r.cpu() for r in raw), algo.priors.cpu(), **kw)
+        check(launches == 1, f"ssd decode: nms_keep launched {launches} "
+                             f"times for one batch")
+        check(all(torch.equal(g, p) for g, p in zip(got, plain)),
+              "ssd decode: nms_keep's detections differ from the plain "
+              "route's on the card")
+        got = [t.cpu() for t in got]
+        check(torch.equal(got[3], ref[3]) and torch.equal(
+            got[2][got[3]], ref[2][ref[3]]) and torch.equal(got[1], ref[1]),
+              "ssd decode: the card's keep set differs from the CPU's")
+        err = float((got[0] - ref[0]).abs().max())
+        check(err <= 1e-3, f"ssd decode: boxes differ by {err}")
+        n = got[3].sum(1).tolist()
+        check(min(n) > 0, f"ssd decode: no detections {n}")
+        cases = {}
+        for name, ((b, sc), thr) in ssd_cases().items():
+            keep = self.compare_keep(torch.from_numpy(b).to(self.dev),
+                                     torch.from_numpy(sc).to(self.dev), thr,
+                                     name)
+            cases[name] = int(keep.sum())
+        emit({"phase": "ssd_decode", "B": 8, "anchors": algo.priors.shape[0],
+              "K": d.pre_nms_topk, "kept": n, "nms_launches": launches,
+              "plain_route_equal": True, "cpu_equal": True,
+              "box_max_abs_err_vs_cpu": err, "offset_cases_kept": cases,
+              "mismatches": self.mismatches,
+              "word_mismatches": self.word_mismatches})
         return launches
 
     def bound(self, sb, ss, keep, thr):
@@ -3189,10 +3488,31 @@ def main() -> int:
     y7_model.load_state_dict(CheckPoint.load_pure(y7_sharp))
     _, _, y7_serve_launches = smoke.phase_serve(
         y7_algo, y7_model, model_name="yolo7", phase="yolo7_serve", scan=True)
-    y7_eval_launches = smoke.phase_yolo7_evaluate(y7_sharp)
-    y7_map_launches = smoke.phase_yolo7_eval_map(y7_run, y7_sharp)
+    y7_eval_launches = smoke.phase_family_evaluate("yolo7", y7_sharp, K=4096)
+    y7_map_launches = smoke.phase_family_eval_map(
+        y7_run, y7_sharp, "yolo7_eval_map", K=4096)
     smoke.phase_int8_parity(imgs, names=("yolo7",), phase="yolo7_int8")
-    y7_int8_launches = smoke.phase_yolo7_int8_predict(y7_sharp)
+    y7_int8_launches = smoke.phase_family_int8_predict(
+        "yolo7", y7_sharp, 4096, yolo7_int8_outputs, INT8_COS_MIN_YOLO7)
+
+    ssd_algo, ssd_model = smoke.ssd_setup()
+    smoke.phase_ssd_parity(ssd_algo, ssd_model)
+    sharpen_ssd_(ssd_model)
+    ssd_decode_launches = smoke.phase_ssd_decode(ssd_algo, ssd_model, imgs)
+    ssd_run = smoke.phase_family_trainer("ssd")
+    ssd_sharp = smoke.family_sharpened("ssd", ssd_run)
+    ssd_predict_launches = smoke.phase_family_predict("ssd", ssd_sharp, imgs)
+    ssd_model.load_state_dict(CheckPoint.load_pure(ssd_sharp))
+    ssd_imgs, ssd_results, ssd_serve_launches = smoke.phase_serve(
+        ssd_algo, ssd_model, model_name="ssd", phase="ssd_serve")
+    smoke.phase_serve_vs_plain(ssd_algo, ssd_model, ssd_imgs, ssd_results,
+                               phase="ssd_serve_vs_plain")
+    ssd_eval_launches = smoke.phase_family_evaluate("ssd", ssd_sharp, K=1024)
+    ssd_map_launches = smoke.phase_family_eval_map(
+        ssd_run, ssd_sharp, "ssd_eval_map", K=1024)
+    smoke.phase_int8_parity(imgs, names=("ssd",), phase="ssd_int8")
+    ssd_int8_launches = smoke.phase_family_int8_predict(
+        "ssd", ssd_sharp, 1024, ssd_int8_outputs, INT8_COS_MIN_SSD)
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
     print(nvidia_smi(), flush=True)
@@ -3228,7 +3548,15 @@ def main() -> int:
                              "yolo7_eval_map (K=4096: the scan)":
                                  y7_map_launches,
                              "yolo7_int8_predict (K=4096: the scan)":
-                                 y7_int8_launches},
+                                 y7_int8_launches,
+                             "ssd_decode (B=8, K=1024)": ssd_decode_launches,
+                             "ssd_predict (B=1, K=1024)":
+                                 ssd_predict_launches,
+                             "ssd_serve (B=8, K=1024)": ssd_serve_launches,
+                             "ssd_evaluate (B=32, K=1024)": ssd_eval_launches,
+                             "ssd_eval_map (B=16, K=1024)": ssd_map_launches,
+                             "ssd_int8_predict (B=1, K=1024)":
+                                 ssd_int8_launches},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

@@ -13,6 +13,10 @@ bit-equal to ``x + 1``. The 3x3 conv may differ from its plain version by
 one bf16 ulp at the largest value (2^-7 * max |plain|): both sum in f32,
 in other orders, and round once to bf16.
 
+The SSD cases of ``ops/nms_cases.py`` (K = 1,024 at B = 1, 8, 32, class
+offsets up to 19 x 7680 px) run with the other kernel cases, and SSD's
+decode is held through ``nms_keep`` against its plain version.
+
 The training step has no kernel of its own; its tests at the end hold the
 card against the CPU: the TAL top-k's lowest-index tie order and the
 assignment bit-equal, one f32 step within the CPU tests' bounds against
@@ -767,6 +771,46 @@ def test_seg_pose_decode_through_nms_keep_equal_the_plain_route(head,
         assert torch.equal(g, r)
     assert torch.equal(got_idx, ref_idx)
     assert int(got[3].sum()) > 0
+
+
+# SSD: its multilabel decode reaches nms_keep at K = 1,024 on every path
+@pytest.mark.parametrize("B,conf", [(1, 0.7), (8, 0.7), (32, 0.01)])
+def test_ssd_decode_through_nms_keep_equals_the_plain_route(B, conf,
+                                                            monkeypatch):
+    """decode_ssd at SSD300's shape (8,732 priors, nc 21, K = 1,024) on the
+    card at predict's, serve's and evaluate's batches: through ``nms_keep``
+    (one launch) and through its plain version, equal outputs; the
+    candidates' class offsets reach 19 x 7680 px."""
+    from tpucv_torch.configs.model_cfgs import ssd_tables
+    from tpucv_torch.decode.ssd import decode_ssd
+    from tpucv_torch.ops import cuda_nms as cn
+    from tpucv_torch.ops.anchors import generate_ssd_anchors
+
+    t = ssd_tables(300)
+    priors = torch.from_numpy(generate_ssd_anchors(
+        300, t["feature_shapes"], t["anchor_sizes"],
+        t["aspect_ratios"])).cuda()
+    rng = np.random.default_rng(B)
+    A = priors.shape[0]
+    loc = torch.from_numpy(rng.normal(0, 1, (B, A, 4)).astype(
+        np.float32)).cuda()
+    logits = rng.normal(0, 4, (B, A, 21)).astype(np.float32)
+    logits[..., 0] -= 4.0                  # fewer background winners
+    conf_maps = torch.from_numpy(logits).cuda()
+
+    def run():
+        with torch.inference_mode():
+            return decode_ssd(loc, conf_maps, priors, 300, conf, 0.5, 100,
+                              1024)
+
+    before = cn.nms_keep.launches
+    got = run()
+    assert cn.nms_keep.launches == before + 1
+    monkeypatch.setattr(cn, "nms_keep", cn.nms_keep_reference)
+    ref = run()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert int(got[3].sum()) > 0 and int(got[2].max()) > 10
 
 
 # int8 PTQ: the GEMM route (im2col + torch._int_mm) against the plain

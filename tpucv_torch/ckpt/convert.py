@@ -25,8 +25,17 @@ the port's copy of tpucv's ``YOLOV7_MODULE_MAP``: ``cv3_{i}`` ->
 ``cv3.{i}``, ``rep{i}/{dense,one}_{conv,bn}`` ->
 ``rep_conv_{i+1}.rbr_{dense,1x1}.{0,1}`` (``id_bn`` -> ``rbr_identity``;
 at phi x ``rep{i}`` is a ConvBnAct, ``rep_conv_{i+1}.conv/.bn``) and
-``head{i}`` -> ``yolo_head_P{i+3}``. The family is told by the tree's
-top-level names.
+``head{i}`` -> ``yolo_head_P{i+3}``.
+
+tpucv's ``SSD`` tree maps onto the reference's names as ``import_ssd``
+reads them: ``vgg{k}_conv`` / ``vgg{k}_bn`` -> ``backbone.layers.{i}`` /
+``.{i+1}`` (the k-th conv of VGG16-BN's layer list), ``conv6`` / ``conv7``
+-> ``backbone.layers.44`` / ``.46``, ``l2norm/scale`` -> ``l2_norm.weight``,
+``extra{j}`` -> ``extras.conv{j}``, ``loc{i}`` / ``conf{i}`` -> ``locs.{i}``
+/ ``confs.{i}``; its quant entries (``vgg{k}_conv::qkernel``, at the
+model's own scope) go to the buffers of the conv they name.
+
+The family is told by the tree's top-level names.
 """
 
 from __future__ import annotations
@@ -77,6 +86,18 @@ _Y7_PART = {"dense_conv": "rbr_dense.0", "dense_bn": "rbr_dense.1",
             "id_bn": "rbr_identity"}
 _ELAN_CONV = re.compile(r"^cv3_(\d+)$")                  # cv3_0 -> cv3.0
 
+# tpucv SSD module name -> reference SSD module name: the VGG convs and
+# BatchNorms at their slots in the ssd.pytorch layer list (a conv, its BN
+# and its ReLU per conv; a pool after each block but the last)
+_VGG_CONV_AT = [0, 3, 7, 10, 14, 17, 20, 24, 27, 30, 34, 37, 40]
+_SSD_TOP = {"conv6": "backbone.layers.44", "conv7": "backbone.layers.46",
+            "l2norm": "l2_norm"}
+for _k, _i in enumerate(_VGG_CONV_AT):
+    _SSD_TOP[f"vgg{_k}_conv"] = f"backbone.layers.{_i}"
+    _SSD_TOP[f"vgg{_k}_bn"] = f"backbone.layers.{_i + 1}"
+_SSD_HEAD = re.compile(r"^(extra|loc|conf)(\d+)$")
+_SSD_PREFIX = {"extra": "extras.conv", "loc": "locs.", "conf": "confs."}
+
 
 def _walk(tree: Mapping, path=()):
     for k, v in tree.items():
@@ -110,13 +131,21 @@ def _yolo7_name(path) -> str:
     return ".".join([_Y7_TOP[top], *parts, leaf])
 
 
+def _ssd_name(path) -> str:
+    top, *mid, leaf = path
+    m = _SSD_HEAD.match(top)
+    mod = _SSD_TOP[top] if m is None else _SSD_PREFIX[m[1]] + m[2]
+    return ".".join([mod, *mid, leaf])
+
+
 def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """tpucv ``{"params", "batch_stats"[, "quant"]}`` nested dicts of
     arrays -> the port's ``state_dict`` (f32 tensors; the quant buffers
-    int8 and f32): ``Yolo8`` with any of its heads (ultralytics key names)
-    or ``Yolo7`` (the reference's). Loads with ``strict=True``."""
-    name_of = (_yolo7_name if "stem0" in variables.get("params", {})
-               else _torch_name)
+    int8 and f32): ``Yolo8`` with any of its heads (ultralytics key names),
+    ``Yolo7`` or ``SSD`` (the reference's). Loads with ``strict=True``."""
+    top = variables.get("params", {})
+    name_of = (_yolo7_name if "stem0" in top else
+               _ssd_name if "vgg0_conv" in top else _torch_name)
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, v in _walk(variables.get(coll, {})):
@@ -135,8 +164,11 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
                     torch.tensor(0)
     for path, v in _walk(variables.get("quant", {})):
         *mod, leaf = path
-        name, t = quant_buffer(leaf, v)
-        sd[name_of((*mod, name))] = t
+        conv, key = leaf.split("::")
+        name, t = quant_buffer(f"conv::{key}", v)
+        # a ConvBnAct holds its conv's buffers; any other conv its own
+        scope = mod if conv == "conv" else [*mod, conv]
+        sd[name_of((*scope, name))] = t
     return sd
 
 

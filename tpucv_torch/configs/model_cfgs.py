@@ -1,6 +1,6 @@
 """Per-model configs (counterpart of ``tpucv/configs/model_cfgs.py``), with
 tpucv's hyperparameter values. Only the families the port has so far are
-here: YOLOv8 detect, seg and pose, and YOLOv7."""
+here: YOLOv8 detect, seg and pose, YOLOv7 and SSD."""
 
 from __future__ import annotations
 
@@ -187,3 +187,67 @@ class Yolo7Config(BaseConfig):
         return (self.loss.box_gain,
                 self.loss.obj_gain * (s * s) / 640.0 ** 2,
                 self.loss.cls_gain * self.num_classes / 80.0)
+
+
+# ---------------------------------------------------------------------- SSD
+def ssd_tables(size: int) -> dict:
+    """The prior and feature tables of SSD300 / SSD512: aspect ratios,
+    feature-map edges, feature channels and anchor sizes (px) per level."""
+    if size == 300:
+        return dict(
+            aspect_ratios=[[2], [2, 3], [2, 3], [2, 3], [2], [2]],
+            feature_shapes=[38, 19, 10, 5, 3, 1],
+            feature_channels=[512, 1024, 512, 256, 256, 256],
+            anchor_sizes=[30, 60, 111, 162, 213, 264, 315],
+        )
+    if size == 512:
+        return dict(
+            aspect_ratios=[[2], [2, 3], [2, 3], [2, 3], [2, 3], [2], [2]],
+            feature_shapes=[64, 32, 16, 8, 4, 2, 1],
+            feature_channels=[512, 1024, 512, 256, 256, 256, 256],
+            anchor_sizes=[36, 77, 154, 230, 307, 384, 461, 538],
+        )
+    raise ValueError(f"SSD input size must be 300 or 512, got {size}")
+
+
+@dataclass
+class SsdArch:
+    backbone: str = "vgg16"
+    input_size: int = 300
+    variances: Tuple[float, float] = (0.1, 0.2)
+
+    @property
+    def tables(self) -> dict:
+        return ssd_tables(self.input_size)
+
+
+@dataclass
+class SsdLoss:
+    # total = conf * (1 - alpha) + loc * alpha; at 1.0 the classification
+    # term, and with it its gradient, vanishes
+    alpha: float = 0.5
+    neg_pos_ratio: int = 3
+    overlap_threshold: float = 0.5
+
+
+@config_registry("ssd")
+@dataclass
+class SsdConfig(BaseConfig):
+    arch: SsdArch = field(default_factory=SsdArch)
+    loss: SsdLoss = field(default_factory=SsdLoss)
+    dataset: DatasetCfg = field(default_factory=lambda: DatasetCfg(
+        name="voc", input_size=300, max_num_boxes=100))
+    optimizer: OptimizerCfg = field(default_factory=lambda: OptimizerCfg(
+        name="adam", lr=1e-3, warmup_iters=1000, milestones=(100, 150)))
+    decode: DecodeCfg = field(default_factory=lambda: DecodeCfg(
+        conf_threshold=0.7, iou_threshold=0.5, max_det=100,
+        pre_nms_topk=1024))
+
+    @property
+    def model_name(self) -> str:
+        return "ssd"
+
+    @property
+    def num_classes(self) -> int:
+        """The dataset's classes plus the background, class 0."""
+        return get_dataset_cfg(self.dataset.name)["num_classes"] + 1

@@ -8,8 +8,9 @@ follow ultralytics (``conv``/``bn``, ``cv1``/``cv2``, ``m.{i}``), so a
 momentum 0.03, as tpucv and the reference do, and in train mode keeps
 flax's running statistics (:class:`BatchNorm2d`).
 
-``ConvBnAct`` carries the int8 PTQ hooks of ``tpucv.quant.conv_bn`` (see
-``tpucv_torch/quant.py``).
+``ConvBnAct`` carries the int8 PTQ hooks of ``tpucv.quant.conv_bn``, and
+``HookedConv2d`` those of ``conv_bn`` with a conv bias and of
+``conv_biased`` (see ``tpucv_torch/quant.py``).
 """
 
 from __future__ import annotations
@@ -61,36 +62,31 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-class ConvBnAct(nn.Module):
-    """Conv2d (no bias) + BatchNorm + SiLU, with tpucv's int8 PTQ hooks.
+class Int8Hooks:
+    """tpucv's int8 PTQ hooks on one conv (+ BN) pair, shared by
+    ``ConvBnAct`` and ``HookedConv2d``: ``conv`` and ``bn`` name the pair
+    (``bn`` None for a biased conv without BN), ``qweight``, ``xscale``,
+    ``qscale`` and ``qbias`` its quant buffers (``quant.QUANT_BUFFERS``).
 
-    In eval mode the pair records its input's absmax while a
-    ``quant.calibrate`` pass has set ``calibration``, and takes
-    ``quant.quantized_conv`` (int8 in, int32 accumulate) when it holds the
-    quant buffers ``quant.QUANT_BUFFERS``; SiLU follows either path. Train
-    mode always runs the float path. A ``state_dict`` that holds the
+    ``pair(x, float_path)``: in eval mode the pair records its input's
+    absmax while a ``quant.calibrate`` pass has set ``calibration``, and
+    takes ``quant.quantized_conv`` (int8 in, int32 accumulate) when it holds
+    the buffers; otherwise, and always in train mode, ``float_path(x)``.
+    The PRE-activation output either way. A ``state_dict`` that holds the
     buffers loads into a float-built pair and quantizes it."""
 
-    def __init__(self, in_ch: int, out_ch: int, k: int = 1, s: int = 1,
-                 p: Optional[int] = None, g: int = 1, d: int = 1,
-                 act: bool = True):
-        super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, k, s, autopad(k, p, d),
-                              dilation=d, groups=g, bias=False)
-        self.bn = BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM)
-        self.act = act
+    def _init_hooks(self) -> None:
         self.calibration: Optional[quant.CalibrationSink] = None
         for name in quant.QUANT_BUFFERS:
             self.register_buffer(name, None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def pair(self, x: torch.Tensor, float_path) -> torch.Tensor:
         if not self.training and self.calibration is not None:
-            self.calibration.record(x, self.bn.eps)
+            self.calibration.record(
+                x, self.bn.eps if self.bn is not None else 1e-5)
         if not self.training and self.qweight is not None:
-            x = quant.quantized_conv(self, x)
-        else:
-            x = self.bn(self.conv(x))
-        return F.silu(x) if self.act else x
+            return quant.quantized_conv(self, x)
+        return float_path(x)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         # a quantized model's state_dict: make room for its buffers first
@@ -100,6 +96,61 @@ class ConvBnAct(nn.Module):
                 setattr(self, name, torch.empty_like(
                     t, device=self.conv.weight.device))
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class ConvBnAct(Int8Hooks, nn.Module):
+    """Conv2d (no bias) + BatchNorm + SiLU, with tpucv's int8 PTQ hooks
+    (:class:`Int8Hooks`); SiLU follows the float and the int8 path."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 1, s: int = 1,
+                 p: Optional[int] = None, g: int = 1, d: int = 1,
+                 act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, out_ch, k, s, autopad(k, p, d),
+                              dilation=d, groups=g, bias=False)
+        self.bn = BatchNorm2d(out_ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = act
+        self._init_hooks()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.pair(x, lambda v: self.bn(self.conv(v)))
+        return F.silu(x) if self.act else x
+
+
+class HookedConv2d(Int8Hooks, nn.Conv2d):
+    """A biased ``nn.Conv2d`` with tpucv's int8 PTQ hooks, for reference
+    networks whose convs and BatchNorms sit side by side in one
+    ``nn.Sequential`` (SSD's VGG, ``backbone.layers.N``), so that the
+    ``state_dict`` keeps their names. ``pair_with(bn)``, called by the
+    owner (``models/ssd.py:VGG16BN``), makes ``bn`` this conv's BatchNorm
+    without registering it here a second time: the forward then runs
+    conv + BN as one pair (or its int8 path), ``quant`` folds ``bn`` into
+    it, and the owner skips ``bn`` in its own walk. Unpaired, it is tpucv's
+    ``conv_biased``: the bias alone folds into the int8 epilogue."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._init_hooks()
+        object.__setattr__(self, "_paired_bn", None)
+
+    def pair_with(self, bn: nn.BatchNorm2d) -> "HookedConv2d":
+        object.__setattr__(self, "_paired_bn", bn)
+        return self
+
+    @property
+    def conv(self) -> nn.Conv2d:
+        return self
+
+    @property
+    def bn(self) -> Optional[nn.BatchNorm2d]:
+        return self._paired_bn
+
+    def _float(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        return y if self.bn is None else self.bn(y)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pair(x, self._float)
 
 
 class Bottleneck(nn.Module):

@@ -1,9 +1,11 @@
 """Anchor generation (counterpart of ``tpucv/ops/anchors.py``): the
-anchor points of the anchor-free heads (``make_anchors``) and the cell
-grids of the anchor-based ones (``yolo_anchor_grid``)."""
+anchor points of the anchor-free heads (``make_anchors``), the cell
+grids of the anchor-based ones (``yolo_anchor_grid``) and SSD's prior
+boxes (``generate_ssd_anchors``)."""
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -54,3 +56,33 @@ def yolo_anchor_grid(
                           for v in np.ravel(anchors[l])]).reshape(-1, 2)
         out.append((torch.stack([gx, gy], -1), wh))
     return out
+
+
+def generate_ssd_anchors(
+    input_size: int,
+    feature_shapes: Sequence[int],
+    anchor_sizes: Sequence[int],
+    aspect_ratios: Sequence[Sequence[int]],
+) -> np.ndarray:
+    """SSD prior boxes, normalised xyxy clipped to [0, 1], (A, 4) f32 in
+    numpy (the caller moves them to its device once). Per cell of level k,
+    in order: the ``min`` square, the ``sqrt(min * max)`` square, then for
+    each aspect ratio ar the ar and 1/ar rectangles; cells row-major. 8,732
+    priors at 300, 24,564 at 512."""
+    all_boxes: List[np.ndarray] = []
+    for k, fs in enumerate(feature_shapes):
+        lo, hi = anchor_sizes[k], anchor_sizes[k + 1]
+        box_wh = [(lo, lo), (math.sqrt(lo * hi), math.sqrt(lo * hi))]
+        for ar in aspect_ratios[k]:
+            box_wh.append((lo * math.sqrt(ar), lo / math.sqrt(ar)))
+            box_wh.append((lo / math.sqrt(ar), lo * math.sqrt(ar)))
+        half = np.array(box_wh, dtype=np.float32) / 2.0        # (P, 2)
+        step = input_size / fs
+        centers = (np.arange(fs, dtype=np.float32) + 0.5) * step
+        cy, cx = np.meshgrid(centers, centers, indexing="ij")
+        cxy = np.stack([cx.reshape(-1), cy.reshape(-1)], axis=-1)
+        boxes = np.concatenate([cxy[:, None] - half[None],
+                                cxy[:, None] + half[None]], axis=-1)
+        all_boxes.append(boxes.reshape(-1, 4))
+    out = np.concatenate(all_boxes, axis=0) / input_size
+    return np.clip(out, 0.0, 1.0)

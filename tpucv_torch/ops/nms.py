@@ -142,6 +142,18 @@ def batched_single_label_nms(
     top_boxes = torch.gather(pred[..., :4], 1,
                              top_idx[..., None].expand(-1, -1, 4))
     top_cls = torch.gather(best_cls, 1, top_idx)
+    return _class_offset_nms(top_boxes, top_scores, top_cls, conf_threshold,
+                             iou_threshold, max_det)
+
+
+def _class_offset_nms(top_boxes: torch.Tensor, top_scores: torch.Tensor,
+                      top_cls: torch.Tensor, conf_threshold: float,
+                      iou_threshold: float, max_det: int
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Score-sorted (B, K) candidates, offset by class x 7680 px, through
+    ``dispatch_batched_nms``; the kept ones gathered into fixed-shape
+    (boxes, scores, classes, valid), valid only above ``conf_threshold``
+    and zero elsewhere."""
     off = top_boxes + top_cls[..., None].to(top_boxes.dtype) * 7680.0
     idx, valid = dispatch_batched_nms(off, top_scores, iou_threshold,
                                       max_det)
@@ -154,3 +166,38 @@ def batched_single_label_nms(
     out_boxes = torch.where(valid[..., None], out_boxes,
                             torch.zeros_like(out_boxes))
     return out_boxes, out_scores, out_cls, valid
+
+
+def batched_non_max_suppression_multilabel(
+    boxes: torch.Tensor,
+    cls_scores: torch.Tensor,
+    conf_threshold: float = 0.01,
+    iou_threshold: float = 0.45,
+    max_det: int = 100,
+    pre_nms_topk: int = 1024,
+) -> Tuple[torch.Tensor, ...]:
+    """Per-class NMS over (B, A, 4) xyxy boxes and (B, A, nc) class
+    probabilities, SSD's: every (anchor, class) pair above
+    ``conf_threshold`` is a candidate of its own. The flattened (A, nc)
+    scores gated at ``conf_threshold``, the top ``min(pre_nms_topk, A·nc)``
+    by score (lowest flat index first on ties, as ``lax.top_k`` orders
+    them), anchor = index // nc and class = index % nc, the anchor's box
+    offset by class x 7680 px, then ``dispatch_batched_nms`` (SSD's K =
+    1,024: ``nms_keep``). The candidates are already in score order, so the
+    keep set is that of tpucv's ``nms_fixpoint``, which sorts them again
+    stably.
+
+    Returns fixed-shape (boxes (B, max_det, 4) xyxy, scores, classes
+    int32, valid)."""
+    B, A, nc = cls_scores.shape
+    flat = torch.where(cls_scores > conf_threshold, cls_scores,
+                       torch.zeros_like(cls_scores)).reshape(B, -1)
+    k = min(pre_nms_topk, A * nc)
+    top_scores, top_idx = torch.sort(flat, dim=1, descending=True,
+                                     stable=True)
+    top_scores, top_idx = top_scores[:, :k].contiguous(), top_idx[:, :k]
+    anchor = top_idx // nc
+    cls = (top_idx % nc).to(torch.int32)
+    cand = torch.gather(boxes, 1, anchor[..., None].expand(-1, -1, 4))
+    return _class_offset_nms(cand, top_scores, cls, conf_threshold,
+                             iou_threshold, max_det)

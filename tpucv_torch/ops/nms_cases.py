@@ -5,7 +5,10 @@ The random, chain and presorted cases are those of
 ``tests/test_pallas_nms.py``; the edge cases sit on the decision edges of
 the IoU test; the block cases on the edges of the kernels' 32-box blocks;
 the class-offset cases have decode's shape (boxes in a 640 image offset by
-class * 7680, scores descending with an invalid tail).
+class * 7680, scores descending with an invalid tail); the SSD cases the
+multilabel decode's (SSD300's K = 1,024 candidates: boxes in a 300 image,
+the same box under several of 20 classes, offsets up to 19 * 7680 px,
+where the f32 spacing is 1/64, and tied scores).
 Every case is ``name -> ((boxes (B, N, 4) f32 xyxy, scores (B, N) f32),
 iou_threshold)``.
 """
@@ -56,6 +59,33 @@ def class_offset_case(seed, B, K, n_cls=4, n_invalid=40):
     scores = -np.sort(-rng.uniform(0.25, 1.0, (B, K)), -1)
     scores[:, K - n_invalid:] = 0.0
     return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+def ssd_offset_case(seed, B, K=1024, nc=20, n_anchors=400, n_invalid=60):
+    """SSD's multilabel candidates, presorted: K (anchor, class) pairs drawn
+    from ``n_anchors`` boxes in a 300 px image (clipped to it) and ``nc``
+    classes, each box offset by class * 7680 px; scores descending in
+    steps of 1/32 (many ties, their order the draw's), an invalid tail of
+    ``n_invalid``."""
+    rng = np.random.default_rng(seed)
+    cxy = rng.uniform(0, 300, (B, n_anchors, 2))
+    wh = rng.uniform(10, 150, (B, n_anchors, 2))
+    anchors = np.clip(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1),
+                      0, 300).astype(np.float32)
+    a = rng.integers(0, n_anchors, (B, K))
+    cls = rng.integers(0, nc, (B, K)).astype(np.float32)
+    boxes = np.take_along_axis(anchors, a[..., None], 1) + \
+        cls[..., None] * np.float32(7680.0)
+    scores = -np.sort(-rng.integers(1, 33, (B, K)) / 32.0, -1)
+    scores[:, K - n_invalid:] = 0.0
+    return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+def ssd_cases():
+    """SSD's K = 1,024 at the batches of its paths: predict (B=1), serve
+    (B=8) and evaluate (B=32), IoU 0.5 as shipped."""
+    return {f"ssd_offsets_B{B}_K1024": (ssd_offset_case(B + 13, B), 0.5)
+            for B in (1, 8, 32)}
 
 
 def edges(tiny):
@@ -142,12 +172,13 @@ def greedy_cases():
 
 
 def kernel_cases():
-    """``greedy_cases`` and ``block_cases`` plus the kernel's own shapes: an
-    odd K, and class-offset sets at the main path's B=128 with K=512 and
-    K=1024."""
+    """``greedy_cases``, ``block_cases`` and ``ssd_cases`` plus the kernel's
+    own shapes: an odd K, and class-offset sets at the main path's B=128
+    with K=512 and K=1024."""
     return {
         **greedy_cases(),
         **block_cases(),
+        **ssd_cases(),
         "odd_K": (class_offset_case(9, 3, 77, n_cls=2, n_invalid=5), 0.45),
         **{f"offsets_B128_K{K}_iou{t}":
            (class_offset_case(K + int(t * 10), 128, K), t)

@@ -2,8 +2,8 @@
 ``tpucv/quant.py``).
 
 The scheme is tpucv's, TensorRT's PTQ:
-  * weights: BatchNorm folded into the kernel and a bias, then symmetric
-    per-output-channel int8 (no zero points);
+  * weights: BatchNorm (and any conv bias) folded into the kernel and a
+    bias, then symmetric per-output-channel int8 (no zero points);
   * activations: symmetric per-tensor int8, the scale the running
     absolute maximum of the conv's input over the calibration batches;
   * the product accumulated in int32 (``ops/int8_conv.py``), then
@@ -16,10 +16,15 @@ buffers: ``qweight`` (cout, kh·kw·cin/g) int8, packed as the GEMM reads it
 scale x ``xscale``) and ``qbias`` (cout,) f32, the folded bias. The float
 weights stay in both models, so the float model still serves and a
 quantized model's ``state_dict`` is the float one plus those buffers.
-``ConvBnAct`` (``nn/blocks.py``) is the hook: in eval mode it records its
-input while a ``calibrate`` pass runs and takes ``quantized_conv`` when it
-holds the buffers; in train mode it always runs the float path. The head's
-final biased 1x1 convs and the DFL stay float, as in tpucv.
+``ConvBnAct`` and ``HookedConv2d`` (``nn/blocks.py``, their shared
+``Int8Hooks``) are the hooks: in eval mode each records its input while a
+``calibrate`` pass runs and takes ``quantized_conv`` when it holds the
+buffers; in train mode it always runs the float path. ``HookedConv2d`` is a
+biased conv, paired with the BatchNorm after it (SSD's VGG: tpucv's
+``conv_bn(use_bias=True)``, whose conv bias folds with the BN) or alone
+(SSD's conv6 / conv7: tpucv's ``conv_biased``, a ``NO_BN`` pair whose bias
+is the folded bias). The YOLO heads' final biased 1x1 convs, the DFL and
+SSD's extras and heads stay float, as in tpucv.
 
 Skips: convs whose per-group input width is below ``min_in_ch`` (the
 3-channel stem, depthwise convs), convs whose calibrated absmax is not
@@ -91,10 +96,11 @@ def quantized_conv(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 def hooked(model: nn.Module):
-    """(qualified name, module) of every conv+BN pair with the hooks."""
-    from tpucv_torch.nn.blocks import ConvBnAct
+    """(qualified name, module) of every conv (+BN) pair with the hooks;
+    each module has ``conv``, ``bn`` (None without BN) and the buffers."""
+    from tpucv_torch.nn.blocks import Int8Hooks
     return [(n, m) for n, m in model.named_modules()
-            if isinstance(m, ConvBnAct)]
+            if isinstance(m, Int8Hooks)]
 
 
 def calibrate(model: nn.Module, batches: Iterable[torch.Tensor]) -> Stats:
@@ -125,19 +131,29 @@ def calibrate(model: nn.Module, batches: Iterable[torch.Tensor]) -> Stats:
 
 
 def quantize_convbn(weight, gamma, beta, mean, var, eps: float,
-                    absmax: float, min_in_ch: int = MIN_IN_CH):
+                    absmax: float, min_in_ch: int = MIN_IN_CH,
+                    conv_bias=None):
     """Fold one conv+BN pair and quantize it, in float64 numpy in tpucv's
-    order of operations (``_quantize_convbn``). ``weight`` is OIHW.
-    Returns (qkernel OIHW int8, xscale f32, scale (cout,) f32, bias (cout,)
-    f32), or None when the pair stays float."""
+    order of operations (``_quantize_convbn``). ``weight`` is OIHW;
+    ``conv_bias`` the conv's own bias, if it has one. ``gamma`` None is a
+    conv without BN (tpucv's ``NO_BN`` pair): the kernel as it is, the
+    conv bias (or 0) as the bias. Returns (qkernel OIHW int8, xscale f32,
+    scale (cout,) f32, bias (cout,) f32), or None when the pair stays
+    float."""
     kernel = np.asarray(weight, np.float64)
     if kernel.shape[1] < min_in_ch or not np.isfinite(absmax) or absmax <= 0:
         return None
-    gamma, beta, mean, var = (np.asarray(a, np.float64)
-                              for a in (gamma, beta, mean, var))
-    f = gamma / np.sqrt(var + eps)
-    w = kernel * f[:, None, None, None]
-    bias = beta + (0.0 - mean) * f
+    cbias = 0.0 if conv_bias is None else np.asarray(conv_bias, np.float64)
+    if gamma is not None:
+        gamma, beta, mean, var = (np.asarray(a, np.float64)
+                                  for a in (gamma, beta, mean, var))
+        f = gamma / np.sqrt(var + eps)
+        w = kernel * f[:, None, None, None]
+        bias = beta + (cbias - mean) * f
+    else:
+        w = kernel
+        bias = np.broadcast_to(np.asarray(cbias, np.float64),
+                               (kernel.shape[0],))
     wmax = np.abs(w).reshape(w.shape[0], -1).max(axis=1)
     wscale = np.where(wmax > 0, wmax / 127.0, 1.0)
     qkernel = np.clip(np.round(w / wscale[:, None, None, None]),
@@ -173,11 +189,13 @@ def quantize_for_inference(model: nn.Module,
         if name not in stats:
             continue
         absmax, eps = stats[name]
-        bn = m.bn
+        bn, c = m.bn, m.conv
+        bn_args = ((None,) * 4 if bn is None else
+                   (_numpy(bn.weight), _numpy(bn.bias),
+                    _numpy(bn.running_mean), _numpy(bn.running_var)))
         entry = quantize_convbn(
-            _numpy(m.conv.weight), _numpy(bn.weight), _numpy(bn.bias),
-            _numpy(bn.running_mean), _numpy(bn.running_var), eps, absmax,
-            min_in_ch)
+            _numpy(c.weight), *bn_args, eps, absmax, min_in_ch,
+            None if c.bias is None else _numpy(c.bias))
         if entry is not None:
             set_quant_buffers(m, *entry)
     return qmodel
