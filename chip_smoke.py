@@ -6,8 +6,8 @@ and in-training mAP on the trainer's checkpoint, YOLOv8-seg and
 YOLOv8-pose through their trainers, predict and evaluate, int8
 post-training quantization of all three (parity, bench, serve, predict,
 evaluate), YOLOv7-l through its forward, decode, trainer, predict,
-serve, evaluate, in-training mAP and int8 path, and SSD300 through the
-same paths.
+serve, evaluate, in-training mAP and int8 path, and SSD300 and
+CenterNet-DLA34 through the same paths.
 
     python3 chip_smoke.py
 
@@ -232,10 +232,48 @@ script started); any failure exits non-zero:
             ssd_int8_predict: the predict CLI --int8 on ssd_predict's 5
             images, and the int8 outputs against the float ones (cosine
             >= INT8_COS_MIN_SSD).
+44. centernet_parity  centernet as shipped (CenterNet-DLA34, nc 20, 384,
+            head 256), seed-0 weights: the f32 forward (B=2) on the card
+            against the CPU, the heatmap, offset and size channels each
+            within CENTERNET_FWD_REL of its largest value; its work an
+            image counted by hooks (GFLOPs, conv outputs; the transposed
+            convs apart); from the CPU's outputs and 30 GT rows an image,
+            the targets (ind, mask, wh, reg equal, heatmap within 1e-6)
+            and the loss terms (within 1e-5 relative), card against CPU;
+            the bf16 channels_last forward at B=16 and the six DepthwiseUp
+            transposed convs' share of it. The later phases sharpen the
+            heatmap head (heatmap.2) by CLS_GAIN (every score 0 or 1).
+45. centernet_decode  decode_centernet on 8 serve images at 384 (K =
+            100, the DIoU scan, nms_keep's count 0): valid, classes,
+            scores and the scan's keep indices equal to the CPU's decode
+            of the card's maps, boxes within 1e-3 px; the decode's and the
+            scan's ms, synced.
+46. centernet_trainer  python -m tpucv_torch.train --model centernet's
+            main as shipped (384², B=16, M=30, bf16, device augmentation,
+            mosaic, synthetic data) for 8 steps, as seg_trainer.
+47. centernet_predict  the predict CLI on the serve images with the
+            trained weights sharpened (conf 0.1, K = 100: the DIoU scan,
+            nms_keep's count 0); ms an image by stage, the scan inside the
+            device's.
+48. centernet_serve  16 requests through make_server (B=8, the scan), as
+            serve, then centernet_serve_vs_direct: the served detections
+            equal to _batched_detections' on the same images.
+49. centernet_evaluate  the evaluate CLI --model centernet on a VOC root
+            written here (65 JPEGs; B=32, conf 0.001, K = 100: the scan),
+            the stage split with the scan's share, every batch's scan and
+            decode against the CPU's from the same maps.
+50. centernet_eval_map  trainer.evaluate_map on the centernet run with
+            the sharpened weights as its EMA (16 images, B=16, the scan).
+51. centernet_int8  int8_parity's check for centernet (53 quantized
+            convs, card accumulators bit-equal to the plain route's), then
+            centernet_int8_predict: the predict CLI --int8 on
+            centernet_predict's 5 images, and the int8 outputs against
+            the float ones (cosine >= INT8_COS_MIN_CENTERNET).
 
 The line before the last holds {"kernels": [...]} (nms_keep, with its
-launches on every path that runs it, the int8, YOLOv7 and SSD ones included,
-add_one, conv3x3); the last line is
+launches on every path that runs it, the int8, YOLOv7, SSD and CenterNet
+ones included (CenterNet's, the DIoU scan, all 0), add_one, conv3x3); the
+last line is
 {"ok": true, "device": {...}}. The whole output is also written to
 chiprun_out/chip_smoke.log. Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -266,6 +304,13 @@ YOLO7_FWD_REL = 1e-4   # YOLOv7-l's f32 maps, card against CPU, each channel
                        # group against its largest value
 SSD_FWD_REL = 1e-4     # SSD300's f32 loc and conf, card against CPU, each
                        # against its largest value
+CENTERNET_FWD_REL = 1e-4   # CenterNet's f32 heatmap, offset and size
+                           # channels, card against CPU, each against its
+                           # largest value
+CENTERNET_QUANTIZED = 53   # every DLA / IDAUp conv + BN but the stem, the
+                           # two dead projects included, and 3 head convs
+DIOU_SCAN = frozenset({"centernet"})   # families whose NMS is the DIoU
+                                       # scan at every K: never nms_keep
 ROOT = Path(__file__).resolve().parent
 AUG_PIXEL_TOL = 1e-5   # augment_batch, card against CPU, f32 values in [0, 1]
 TRAIN_STEPS = 40       # 10 epochs of the synthetic set's 4 batches of 16
@@ -275,12 +320,18 @@ INT8_MATCH_MIN = 0.5   # int8 serve / predict: float detections matched
 INT8_COS_MIN = 0.999   # int8 raw maps against float: tpucv's cosine bar
 INT8_CLASS_AGREE_MIN = 0.95   # and the best class at the live anchors
 INT8_COS_MIN_SSD = 0.99       # SSD300: 14 quantized VGG convs
+INT8_COS_MIN_CENTERNET = 0.99  # CenterNet-DLA34: 53 quantized convs
 INT8_COS_MIN_YOLO7 = 0.99     # YOLOv7-l: 85 quantized convs in a chain
                               # (tpucv's own YOLOv7 bar is a max relative
                               # error under 0.1; its seed-0 maps at 640 on
                               # the CPU: 0.066-0.099, cosine 0.9958-0.9970)
 LOOP_STAGES = ("fill_canvases", "h2d_letterbox_forward_topk", "scan",
                "d2h_records")
+
+
+def nms_on_kernel(name: str, K: int) -> bool:
+    """Whether a family's NMS at K candidates runs through nms_keep."""
+    return name not in DIOU_SCAN and K <= 1024
 
 
 T0 = time.perf_counter()    # the script's start, for the phases' "t_s"
@@ -398,6 +449,18 @@ def sharpen_ssd_(model) -> None:
             conf.weight.mul_(CLS_GAIN)
 
 
+def sharpen_centernet_(model) -> None:
+    """Zero the bias of CenterNet's heatmap 1x1 conv (``heatmap.2``) and
+    scale its kernel by CLS_GAIN, in place: every score goes to 0 or 1, and
+    the top K, its ties, take the lowest flat indices."""
+    import torch
+
+    with torch.no_grad():
+        conv = model.backbone.heatmap[2]
+        conv.bias.zero_()
+        conv.weight.mul_(CLS_GAIN)
+
+
 def yolo7_int8_outputs(algo, f_maps, q_maps):
     """YOLOv7's float and int8 raw maps by level, and each anchor's class
     scores (objectness x class, after the sigmoid), for
@@ -418,6 +481,18 @@ def ssd_int8_outputs(algo, f_out, q_out):
     phase_family_int8_predict."""
     groups = dict(zip(("loc", "conf"), zip(f_out, q_out)))
     return groups, [tuple(t[1].float().softmax(-1)[..., 1:]
+                          for t in (f_out, q_out))]
+
+
+def centernet_int8_outputs(algo, f_out, q_out):
+    """CenterNet's float and int8 heatmap logits, offsets and sizes apart,
+    and each cell's class scores (the heatmap's sigmoid), for
+    phase_family_int8_predict."""
+    C = algo.nc
+    groups = {k: (f_out[..., sl], q_out[..., sl]) for k, sl in (
+        ("hm", slice(0, C)), ("reg", slice(C, C + 2)),
+        ("wh", slice(C + 2, C + 4)))}
+    return groups, [tuple(t[..., :C].float().sigmoid()
                           for t in (f_out, q_out))]
 
 
@@ -602,6 +677,13 @@ TRAINED = {
                 sharpen=sharpen_ssd_,
                 desc="SSD300-VGG16-BN, nc 21, 300, B=16, M=100, bf16, "
                      "device augmentation, mosaic 0.5, synthetic data"),
+    "centernet": dict(arch=("backbone", "dla34"), size=384, M=30,
+                      terms=("loss", "hm_loss", "wh_loss", "off_loss"),
+                      val="val_hm_loss", phase="centernet_trainer",
+                      sharpen=sharpen_centernet_,
+                      desc="CenterNet-DLA34, nc 20, 384, B=16, M=30, bf16, "
+                           "device augmentation, mosaic 0.5, synthetic "
+                           "data"),
 }
 
 
@@ -1912,7 +1994,8 @@ class Smoke:
             with open(base / "result" / "eval_results.json") as f:
                 dts = json.load(f)
             stages, scans, rec_stats = self._recorded_evaluate(
-                cli, argv, DetectionAlgorithm, decode, COCOMeanAP)
+                cli, argv, DetectionAlgorithm,
+                (decode, "dispatch_batched_nms"), COCOMeanAP)
         finally:
             os.chdir(cwd)
             if env_was is None:
@@ -1963,19 +2046,20 @@ class Smoke:
         emit({"phase": "evaluate", **row})
         return launches, stats
 
-    def _recorded_evaluate(self, cli, argv, algo_cls, decode, coco_cls):
+    def _recorded_evaluate(self, cli, argv, algo_cls, scan, coco_cls):
         """The evaluate CLI's main once more, with recorders put around its
         own functions and taken away after: each batch's canvas fill
         (wall), H2D + letterbox + forward + top-k (from the fill's end to
-        the scan's start), the scan (``dispatch_batched_nms``, synced at
-        both edges), D2H and the host's records (to the next batch's fill,
-        or to the loop's end), then COCOeval's accumulate. Returns (stages:
-        each of LOOP_STAGES -> [ms a batch], "images" -> [images a batch],
-        "cocoeval" -> ms; the scans' (inputs, thr, max_det, outputs); the
-        stats)."""
+        the scan's start), the scan (``scan``: (owner, attribute) of the
+        NMS call, synced at both edges), D2H and the host's records (to the
+        next batch's fill, or to the loop's end), then COCOeval's
+        accumulate. Returns (stages: each of LOOP_STAGES -> [ms a batch],
+        "images" -> [images a batch], "cocoeval" -> ms; the scans' (args,
+        keywords, outputs); the stats)."""
         sync = self.sync
         fill, harness = algo_cls._fill_canvases, algo_cls._batched_detections
-        dispatch, accumulate = decode.dispatch_batched_nms, coco_cls.accumulate
+        owner, attr = scan
+        dispatch, accumulate = getattr(owner, attr), coco_cls.accumulate
         marks, scans, stages = [], [], {"images": []}
 
         def fill_rec(obj, index, idxs, *a, **kw):
@@ -1985,13 +2069,13 @@ class Smoke:
             marks.append({"fill": (t0, time.perf_counter())})
             return out
 
-        def dispatch_rec(off, scores, thr, max_det):
+        def dispatch_rec(*args, **kw):
             sync()
             t0 = time.perf_counter()
-            idx, valid = dispatch(off, scores, thr, max_det)
+            idx, valid = dispatch(*args, **kw)
             sync()
             marks[-1]["scan"] = (t0, time.perf_counter())
-            scans.append((off, scores, thr, max_det, idx, valid))
+            scans.append((args, kw, idx, valid))
             return idx, valid
 
         def harness_rec(*a, **kw):
@@ -2006,14 +2090,14 @@ class Smoke:
 
         algo_cls._fill_canvases = fill_rec
         algo_cls._batched_detections = harness_rec
-        decode.dispatch_batched_nms = dispatch_rec
+        setattr(owner, attr, dispatch_rec)
         coco_cls.accumulate = accumulate_rec
         try:
             stats = cli.main(argv)
         finally:
             algo_cls._fill_canvases = fill
             algo_cls._batched_detections = harness
-            decode.dispatch_batched_nms = dispatch
+            setattr(owner, attr, dispatch)
             coco_cls.accumulate = accumulate
         for k in LOOP_STAGES:
             stages[k] = []
@@ -2027,8 +2111,9 @@ class Smoke:
     def _scans_equal_cpu(self, scans, stages, n_img, batch, dispatch,
                          K=4096):
         """Every batch the evaluate CLI scanned (``_recorded_evaluate``),
-        with ``K`` candidates (4096: the scan; SSD's 1,024: nms_keep) and
-        more live ones than ``max_det``, held against ``dispatch`` on the
+        with ``K`` candidates (4096: the scan; SSD's 1,024: nms_keep;
+        CenterNet's 100: the DIoU scan) and more live ones than ``max_det``
+        (all K where K is ``max_det``), held against ``dispatch`` on the
         CPU from the same candidates (at K <= 1,024 the kernel's plain
         version): idx and valid equal. Returns (detections kept an image,
         the loop's ms, the mean ms of each stage over the full batches)."""
@@ -2036,12 +2121,14 @@ class Smoke:
         check(len(scans) == len(stages["images"]) == -(-n_img // batch),
               f"{len(scans)} scans for batches of {stages['images']}")
         kept = []
-        for k, (off, scores, thr, max_det, idx, valid) in enumerate(scans):
+        for k, (args, kw, idx, valid) in enumerate(scans):
+            off, scores, thr, max_det = args
             check(scores.shape[1] == K and int(
-                (scores > 0).sum(1).min()) > max_det,
+                (scores > 0).sum(1).min()) > min(max_det, K - 1),
                   f"batch {k}: the scan had little work: K "
                   f"{scores.shape[1]}, {int((scores > 0).sum())} valid")
-            c_idx, c_valid = dispatch(off.cpu(), scores.cpu(), thr, max_det)
+            c_idx, c_valid = dispatch(off.cpu(), scores.cpu(), thr, max_det,
+                                      **kw)
             check(torch.equal(idx.cpu(), c_idx)
                   and torch.equal(valid.cpu(), c_valid),
                   f"batch {k}: the scan on the card differs from the scan "
@@ -2255,6 +2342,9 @@ class Smoke:
                 check(len(wide) == 6, f"pose: 51-wide convs padded {wide}")
             if name == "ssd":
                 check(n_q == 14, f"ssd: {n_q} quantized convs, not 14")
+            if name == "centernet":
+                check(n_q == CENTERNET_QUANTIZED, f"centernet: {n_q} "
+                      f"quantized convs, not {CENTERNET_QUANTIZED}")
             rows[name] = {"count_quantized": n_q, "convs_compared": len(seen),
                           "accumulators_bit_equal": True,
                           "max_abs_accumulator": peak,
@@ -2691,45 +2781,45 @@ class Smoke:
         emit({"phase": "yolo7_decode", **row, "keep_sets_equal": True})
         return row["128_K1008_nms_keep"]["nms_launches"]
 
-    def phase_yolo7_predict(self, ckpt, imgs, reps=3):
-        """``python -m tpucv_torch.predict --model yolo7``'s main on the
+    def phase_scan_predict(self, name, ckpt, imgs, K, scan, reps=3):
+        """``python -m tpucv_torch.predict --model <name>``'s main on the
         serve images (4 JPEGs, a PNG) with the trained run's final weights
-        sharpened (conf 0.5, K = 4096: the scan; nms_keep's count zeroed
-        just before, read just after, 0); drawn files exist; then ms an
-        image split into decode, letterbox, device (H2D, forward, decode,
-        NMS, D2H) with the scan inside it, and draw (median of
-        ``reps``)."""
+        sharpened (yolo7: conf 0.5, K = 4096, the scan; centernet: conf
+        0.1, K = 100, the DIoU scan; nms_keep's count zeroed just before,
+        read just after, 0); drawn files exist; then ms an image split into
+        decode, letterbox, device (H2D, forward, decode, NMS, D2H) with the
+        scan inside it (``scan``: its (owner, attribute), synced at both
+        edges), and draw (median of ``reps``)."""
         import cv2
 
         from tpucv_torch import predict as cli
         from tpucv_torch.algorithms import base as base_mod
         from tpucv_torch.builder import export_from_registry
         from tpucv_torch.ckpt.checkpoint import CheckPoint
-        from tpucv_torch.ops import nms as nms_mod
         from tpucv_torch.ops.cuda_nms import nms_keep
 
-        out = ROOT / "saves" / "chip_smoke" / "yolo7" / "predict"
+        out = ROOT / "saves" / "chip_smoke" / name / "predict"
         out.mkdir(parents=True, exist_ok=True)
         srcs = []
         for k, img in enumerate(imgs[:5]):
             srcs.append(str(out / f"img{k}{'.png' if k == 4 else '.jpg'}"))
             check(cv2.imwrite(srcs[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
                   f"could not write {srcs[-1]}")
-        argv = ["--model", "yolo7", "--ckpt", ckpt, "--src", *srcs]
+        argv = ["--model", name, "--ckpt", ckpt, "--src", *srcs]
         nms_keep.launches = 0                # just before the path
         t0 = time.perf_counter()
         got = cli.main([*argv, "--dst", str(out / "drawn")])
         wall = time.perf_counter() - t0
         launches = nms_keep.launches         # just after
-        check(launches == 0, f"yolo7 predict: nms_keep launched {launches} "
-                             f"times at K=4096")
+        check(launches == 0, f"{name} predict: nms_keep launched {launches} "
+                             f"times at K={K}")
         for src, r in zip(srcs, got):
             check(r["saved"] and Path(r["saved"]).is_file(),
                   f"{src}: no drawn file ({r['saved']})")
         n_dets = [len(r["classes"]) for r in got]
-        check(min(n_dets) > 0, f"yolo7: an image got no detection: {n_dets}")
+        check(min(n_dets) > 0, f"{name}: an image got no detection: {n_dets}")
 
-        cfg, algo_cls, _ = export_from_registry("yolo7")
+        cfg, algo_cls, _ = export_from_registry(name)
         algo = algo_cls(cfg, device=self.dev)
         model = algo.init_variables()
         model.load_state_dict(CheckPoint.load_pure(ckpt))
@@ -2739,15 +2829,15 @@ class Smoke:
                             ("letter_box", "letterbox"),
                             ("show_detection_results", "draw")):
             rec.wrap(base_mod, attr, label)
-        scan = rec.wrapped(nms_mod.dispatch_batched_nms, "scan")
+        owner, attr = scan
+        timed_scan = rec.wrapped(getattr(owner, attr), "scan")
 
         def synced_scan(*a, **kw):           # the forward's queue drained
             self.sync()
-            return scan(*a, **kw)
+            return timed_scan(*a, **kw)
 
-        rec._undo.append((nms_mod, "dispatch_batched_nms",
-                          nms_mod.dispatch_batched_nms))
-        nms_mod.dispatch_batched_nms = synced_scan
+        rec._undo.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, synced_scan)
         laps = {k: [] for k in ("decode", "letterbox", "device", "draw",
                                 "scan")}
         try:
@@ -2763,7 +2853,7 @@ class Smoke:
         finally:
             rec.restore()
         med = {k: float(np.median(v)) for k, v in laps.items()}
-        emit({"phase": "yolo7_predict", "images": len(srcs), "K": 4096,
+        emit({"phase": f"{name}_predict", "images": len(srcs), "K": K,
               "nms_launches": launches, "detections": n_dets,
               "cli_wall_s": wall, "ms_per_image": med,
               "ms_per_image_total": sum(v for k, v in med.items()
@@ -2772,7 +2862,8 @@ class Smoke:
               "nvidia_smi": nvidia_smi()})
         return launches
 
-    def phase_family_evaluate(self, name, ckpt, K, batch=32):
+    def phase_family_evaluate(self, name, ckpt, K, batch=32, scan=None,
+                              decode=None):
         """``python -m tpucv_torch.evaluate --model <name>``'s main on a VOC
         root written here (65 640x480 JPEGs, some objects difficult) with
         the sharpened checkpoint (B=32, conf 0.001; yolo7 at K = 4096: the
@@ -2785,7 +2876,14 @@ class Smoke:
         NMS equal to the CPU's from the candidates the CLI gave it (at K <=
         1,024 the kernel's plain version). At K <= 1,024, nms_keep on the
         first batch's candidates is then timed against its plain version
-        and its bound (``time_kernel``)."""
+        and its bound (``time_kernel``). ``scan``, (owner, attribute) of the
+        family's NMS call (default ``ops/nms.py:dispatch_batched_nms``;
+        centernet's DIoU scan: ``decode/centernet.py:nms``, K = 100, never
+        the kernel). ``decode``, (owner, attribute) of the family's decode
+        as its infer fn reads it: when given, every batch's detections of
+        the recorded run are held against that decode on the CPU from the
+        same raw maps (valid, classes and scores equal, boxes within 1e-3
+        px)."""
         import os
 
         from tpucv_torch import evaluate as cli
@@ -2794,6 +2892,7 @@ class Smoke:
         from tpucv_torch.ops import nms as nms_mod
         from tpucv_torch.ops.cuda_nms import nms_keep
 
+        scan = scan or (nms_mod, "dispatch_batched_nms")
         base = ROOT / "saves" / "chip_smoke" / name / "evaluate"
         root = base / "voc"
         n_img = write_voc_root(root, 65)
@@ -2808,15 +2907,29 @@ class Smoke:
             self.sync()
             wall = time.perf_counter() - t0
             launches = nms_keep.launches     # just after
-            stages, scans, rec_res = self._recorded_evaluate(
-                cli, argv, DetectionAlgorithm, nms_mod, COCOMeanAP)
+            decoded = []
+            if decode is not None:
+                owner, attr = decode
+                dec = getattr(owner, attr)
+
+                def dec_rec(raw, **kw):
+                    out = dec(raw, **kw)
+                    decoded.append((raw, kw, out))
+                    return out
+                setattr(owner, attr, dec_rec)
+            try:
+                stages, scans, rec_res = self._recorded_evaluate(
+                    cli, argv, DetectionAlgorithm, scan, COCOMeanAP)
+            finally:
+                if decode is not None:
+                    setattr(owner, attr, dec)
         finally:
             os.chdir(cwd)
             if env_was is None:
                 os.environ.pop("TPUCV_VOC_ROOT")
             else:
                 os.environ["TPUCV_VOC_ROOT"] = env_was
-        on_kernel = K <= 1024
+        on_kernel = nms_on_kernel(name, K)
         n_batches = -(-n_img // batch)
         check(launches == (n_batches if on_kernel else 0),
               f"{name} evaluate: nms_keep launched {launches} times for "
@@ -2826,10 +2939,26 @@ class Smoke:
               f"{name} evaluate: {res['mAP']}, {res['coco']}")
         check(rec_res["mAP"] == res["mAP"], "the recorded run's mAP differs")
         kept, loop_ms, per_full_batch = self._scans_equal_cpu(
-            scans, stages, n_img, batch, nms_mod.dispatch_batched_nms, K=K)
+            scans, stages, n_img, batch, getattr(*scan), K=K)
+        box_err = 0.0
+        if decode is not None:
+            check(len(decoded) == n_batches, f"{name} evaluate: "
+                  f"{len(decoded)} decodes for {n_batches} batches")
+            for k, (raw, kw, out) in enumerate(decoded):
+                ref = dec(raw.cpu(), **kw)
+                got = [t.cpu() for t in out]
+                eq = self.torch.equal
+                check(eq(got[3], ref[3]) and eq(got[2][got[3]], ref[2][ref[3]])
+                      and eq(got[1], ref[1]),
+                      f"{name} evaluate batch {k}: the card's detections "
+                      f"differ from the CPU's decode of the same maps")
+                box_err = max(box_err, float(
+                    (got[0][got[3]] - ref[0][ref[3]]).abs().max()))
+            check(box_err <= 1e-3, f"{name} evaluate: boxes {box_err} px "
+                                   f"from the CPU's")
         timed = {}
         if on_kernel:
-            off, scores, thr = scans[0][:3]
+            off, scores, thr = scans[0][0][:3]
             row = self.time_kernel(off, scores, thr,
                                    f"{name}_evaluate_B{batch}_K{K}")
             timed[f"nms_keep_B{batch}_K{K}"] = {k: row[k] for k in (
@@ -2852,16 +2981,20 @@ class Smoke:
               "nms_share_of_full_batch": per_full_batch["scan"] / sum(
                   per_full_batch[k] for k in LOOP_STAGES),
               "nms_equals_cpu_batches": len(scans), **timed,
+              **({"decode_equals_cpu_batches": len(decoded),
+                  "decode_box_max_abs_err_vs_cpu": box_err} if decoded
+                 else {}),
               "nvidia_smi": nvidia_smi()})
         return launches
 
     def phase_family_eval_map(self, run, ckpt, phase, K, reps=3):
-        """``trainer.evaluate_map`` on a family's run (yolo7, ssd) with the
-        sharpened weights handed over as its EMA (16 synthetic val images,
-        B=16, conf 0.01). yolo7 at 640: K = 4096, the scan, nms_keep's count
-        0; ssd: K = 1,024, nms_keep's count (zeroed just before the call,
-        read just after) above 0 and the detections equal to the same call
-        through nms_keep's plain version. The VOC mAP@0.5, the trained
+        """``trainer.evaluate_map`` on a family's run (yolo7, ssd, centernet)
+        with the sharpened weights handed over as its EMA (16 synthetic val
+        images, B=16, conf 0.01). yolo7 at 640: K = 4096, the scan, and
+        centernet: K = 100, the DIoU scan, nms_keep's count 0; ssd: K =
+        1,024, nms_keep's count (zeroed just before the call, read just
+        after) above 0 and the detections equal to the same call through
+        nms_keep's plain version. The VOC mAP@0.5, the trained
         weights unchanged, ms a call (median of ``reps``)."""
         import types
 
@@ -2871,6 +3004,7 @@ class Smoke:
         torch = self.torch
         trainer = run["trainer"]
         state = trainer.state
+        on_kernel = nms_on_kernel(trainer.cfg.model_name, K)
         sharp = CheckPoint.load_pure(ckpt)
         view = types.SimpleNamespace(
             model=state.model,
@@ -2893,7 +3027,7 @@ class Smoke:
             first_ms = (time.perf_counter() - t0) * 1e3
             launches = nms_keep.launches     # just after
             got, seen[:] = list(seen), []
-            if K <= 1024:
+            if on_kernel:
                 was = self._swap_nms_keep(nms_keep_reference)
                 try:
                     res_plain = trainer.evaluate_map(view)
@@ -2908,7 +3042,7 @@ class Smoke:
                 check(len(seen) == len(got), f"{phase}: {len(seen)} images")
         finally:
             trainer.algorithm._batched_detections = harness
-        check(launches > 0 if K <= 1024 else launches == 0,
+        check(launches > 0 if on_kernel else launches == 0,
               f"{phase}: nms_keep launched {launches} times at K={K}")
         check(set(res) == {"map50"} and np.isfinite(res["map50"]),
               f"{phase} gave {res}")
@@ -2924,7 +3058,7 @@ class Smoke:
         emit({"phase": phase, "images": len(trainer.val_index),
               "batch": trainer.cfg.train.batch_size, "K": K,
               "result": res, "nms_launches": launches,
-              "plain_route_equal": K <= 1024,
+              "plain_route_equal": on_kernel,
               "first_call_ms": first_ms,
               "ms_per_call": float(np.median(times)), "ms_runs": times})
         return launches
@@ -2962,7 +3096,7 @@ class Smoke:
         got = cli.main([*argv, "--int8", "--dst", str(out / "int8")])
         wall = time.perf_counter() - t0
         launches = nms_keep.launches         # just after
-        check(launches == (len(srcs) if K <= 1024 else 0),
+        check(launches == (len(srcs) if nms_on_kernel(name, K) else 0),
               f"{name} int8 predict: nms_keep launched {launches} times for "
               f"{len(srcs)} images at K={K}")
         check(all(r["saved"] and Path(r["saved"]).is_file() for r in got),
@@ -3172,6 +3306,245 @@ class Smoke:
               "mismatches": self.mismatches,
               "word_mismatches": self.word_mismatches})
         return launches
+
+    # ------------------------------------------------------- CenterNet --
+    def centernet_setup(self):
+        """centernet as shipped: CenterNet-DLA34, nc 20, 384, head 256,
+        downsample 4, bf16, decode K 100, conf 0.1, DIoU NMS at IoU 0.5;
+        the algorithm on the card and its seed-0 model."""
+        from tpucv_torch.builder import export_from_registry
+
+        cfg, algo_cls, _ = export_from_registry("centernet")
+        d, a = cfg.decode, cfg.arch
+        check(cfg.dataset.input_size == a.input_size == 384
+              and (a.backbone, a.downsample, a.head_channels) == (
+                  "dla34", 4, 256)
+              and cfg.num_classes == 20 and cfg.train.mixed_precision
+              and cfg.dataset.max_num_boxes == 30
+              and (d.K, d.conf_threshold, d.use_diou_nms,
+                   d.iou_threshold) == (100, 0.1, True, 0.5),
+              "centernet config is not as shipped")
+        algo = algo_cls(cfg, device=self.dev)
+        return algo, algo.init_variables(seed=0)
+
+    def phase_centernet_parity(self, algo, model, B_time=16, reps=10):
+        """The f32 forward (TF32 off) of the seed-0 CenterNet at B=2, 384²,
+        card against CPU: the heatmap, offset and size channels apart, each
+        within CENTERNET_FWD_REL of its own largest |value|; the forward's
+        work an image counted by hooks on the CPU's run (convs and the
+        depthwise transposed convs apart). From the CPU's outputs and 30 GT
+        rows an image (some padded), the targets card against CPU (ind,
+        mask, wh and reg equal, the heatmap within 1e-6) and the loss terms
+        within 1e-5 relative. Then the bf16 ``channels_last`` forward at
+        B=``B_time`` timed (CUDA events), and the six DepthwiseUp transposed
+        convs (all at factor 2) alone on the inputs that forward gave them:
+        their share of it."""
+        import copy
+
+        from tpucv_torch.models.centernet import DepthwiseUp
+        from tpucv_torch.probes.common import timed
+        from tpucv_torch.targets.centernet import build_centernet_targets
+
+        torch = self.torch
+        cpu = torch.device("cpu")
+        C = algo.nc
+        B, S = 2, algo.input_size
+        x = torch.from_numpy(np.random.default_rng(3).random(
+            (B, S, S, 3), dtype=np.float32))
+        work = {"conv": [0, 0], "up": [0, 0]}   # multiply-adds, outputs
+
+        def count(mod, inp, out):
+            per = mod.weight[0].numel()
+            kind = "up" if isinstance(mod, torch.nn.ConvTranspose2d) \
+                else "conv"
+            src = inp[0] if kind == "up" else out
+            work[kind][0] += src.numel() * per
+            work[kind][1] += out.numel()
+
+        with torch.inference_mode():
+            got = model(x.to(self.dev)).cpu()
+            on_cpu = copy.deepcopy(model).to(cpu).to(
+                memory_format=torch.contiguous_format)
+            hooks = [m.register_forward_hook(count) for m in on_cpu.modules()
+                     if isinstance(m, (torch.nn.Conv2d,
+                                       torch.nn.ConvTranspose2d))]
+            raw = on_cpu(x)
+            for h in hooks:
+                h.remove()
+        check(bool(torch.isfinite(got).all()),
+              "centernet: non-finite outputs on the card")
+        parts = {"hm": slice(0, C), "reg": slice(C, C + 2),
+                 "wh": slice(C + 2, C + 4)}
+        rel = {k: float((got[..., sl] - raw[..., sl]).abs().max()
+                        / raw[..., sl].abs().max()) for k, sl in parts.items()}
+        rng = np.random.default_rng(4)
+        cxy = rng.uniform(10, S - 10, (B, 30, 2))
+        wh = rng.uniform(4, S * 0.8, (B, 30, 2))
+        gt = {"gt_bboxes": torch.from_numpy(np.clip(np.concatenate(
+                  [cxy - wh / 2, cxy + wh / 2], -1), 0, S).astype(
+                  np.float32)),
+              "gt_labels": torch.from_numpy(rng.integers(0, C, (B, 30))),
+              "gt_mask": torch.from_numpy(rng.random((B, 30)) < 0.7)}
+        targets, runs = [], []
+        for dev, a in ((cpu, type(algo)(algo.cfg, device=cpu)),
+                       (self.dev, algo)):
+            g = {k: v.to(dev) for k, v in gt.items()}
+            with torch.inference_mode():
+                targets.append([t.cpu() for t in build_centernet_targets(
+                    g["gt_bboxes"], g["gt_labels"], g["gt_mask"], C,
+                    a.out_hw, a.down)])
+                total, terms = a.build_loss()(raw.to(dev), g)
+            runs.append({"loss": float(total),
+                         **{k: float(v) for k, v in terms.items()}})
+        (ch, *c_rest), (gh, *g_rest) = targets
+        hm_err = float((gh - ch).abs().max())
+        same = all(torch.equal(a, b) for a, b in zip(c_rest, g_rest))
+        c, g = runs
+        loss_rel = {k: abs(g[k] - v) / max(abs(v), 1e-12)
+                    for k, v in c.items()}
+
+        # the bf16 channels_last forward, and the transposed convs' share
+        xb = torch.from_numpy(np.random.default_rng(5).random(
+            (B_time, S, S, 3), dtype=np.float32)).to(self.dev)
+        ups = []
+        hooks = [m.register_forward_hook(
+            lambda mod, inp, out: ups.append((mod, inp[0])))
+            for m in model.modules() if isinstance(m, DepthwiseUp)]
+        with torch.inference_mode(), \
+                torch.autocast("cuda", dtype=torch.bfloat16):
+            try:
+                model(xb)
+            finally:
+                for h in hooks:
+                    h.remove()
+            fwd_ms = timed(lambda: model(xb), reps, self.dev)
+            up_ms = timed(lambda: [m(t) for m, t in ups], reps, self.dev)
+            fwd_ms2 = timed(lambda: model(xb), reps, self.dev)
+        fwd = min(fwd_ms, fwd_ms2)
+        emit({"phase": "centernet_parity", "shape": list(got.shape),
+              "forward_gflops_per_image": 2 * (work["conv"][0] +
+                                               work["up"][0]) / B / 1e9,
+              "conv_gflops_per_image": 2 * work["conv"][0] / B / 1e9,
+              "depthwise_up_gflops_per_image": 2 * work["up"][0] / B / 1e9,
+              "conv_outputs_per_image": work["conv"][1] // B,
+              "up_outputs_per_image": work["up"][1] // B,
+              "forward_rel_err": rel, "targets_ind_mask_wh_reg_equal": same,
+              "targets_heatmap_max_abs_err": hm_err,
+              "targets_positives": int(c_rest[3].sum()),
+              "loss_cpu": c, "loss_card": g,
+              "loss_max_rel_err": max(loss_rel.values()),
+              "bf16_forward_B": B_time, "bf16_forward_ms": fwd,
+              "bf16_forward_ms_runs": [fwd_ms, fwd_ms2],
+              "depthwise_up_ms": up_ms, "depthwise_up_launches": len(ups),
+              "depthwise_up_share_of_forward": up_ms / fwd})
+        check(max(rel.values()) < CENTERNET_FWD_REL,
+              f"centernet: the f32 forward on the card differs from the "
+              f"CPU: {rel}")
+        check(same and int(c_rest[3].sum()) > 0,
+              "centernet: the targets' ind / mask / wh / reg on the card "
+              "differ from the CPU's")
+        check(hm_err <= 1e-6, f"centernet: target heatmap card against CPU "
+                              f"{hm_err}")
+        check(max(loss_rel.values()) <= 1e-5,
+              f"centernet: loss card {g} against CPU {c}")
+        check(len(ups) == 6, f"centernet: {len(ups)} DepthwiseUp ran")
+
+    def phase_centernet_decode(self, algo, model, imgs, reps=5):
+        """``decode_centernet`` on the sharpened model's bf16 outputs for 8
+        serve images letterboxed to 384 (K = 100, conf 0.1, DIoU NMS by the
+        scan): nms_keep's count zeroed just before, read just after (0); the
+        same decode on the CPU from the same maps: valid, classes, scores
+        and the scan's keep indices equal, boxes within 1e-3 px. Then the
+        decode's and the scan's ms on the card, each synced at both edges
+        (median of ``reps``)."""
+        from tpucv_torch.decode import centernet as cdec
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.preprocess import normalize_images
+
+        torch = self.torch
+        d = algo.cfg.decode
+        kw = dict(num_classes=algo.nc, downsample=algo.down, K=d.K,
+                  conf_threshold=d.conf_threshold,
+                  use_diou_nms=d.use_diou_nms, iou_threshold=d.iou_threshold)
+        lb = self.letterboxed(algo, imgs[:8])
+        with torch.inference_mode(), \
+                torch.autocast("cuda", dtype=torch.bfloat16):
+            raw = model(normalize_images(lb, algo.dtype))
+        nms, scans = cdec.nms, []
+
+        def recorded(*a, **k):
+            out = nms(*a, **k)
+            scans.append((a, k, out))
+            return out
+
+        cdec.nms = recorded
+        try:
+            with torch.inference_mode():
+                nms_keep.launches = 0        # just before the path
+                got = cdec.decode_centernet(raw, **kw)
+                self.sync()
+                launches = nms_keep.launches     # just after
+                ref = cdec.decode_centernet(raw.cpu(), **kw)
+        finally:
+            cdec.nms = nms
+        check(launches == 0, f"centernet decode: nms_keep launched "
+                             f"{launches} times")
+        got = [t.cpu() for t in got]
+        (args, k, (g_idx, g_valid)), (_, _, (c_idx, c_valid)) = scans
+        check(torch.equal(got[3], ref[3]) and torch.equal(
+            got[2][got[3]], ref[2][ref[3]]) and torch.equal(got[1], ref[1])
+              and torch.equal(g_idx.cpu(), c_idx)
+              and torch.equal(g_valid.cpu(), c_valid),
+              "centernet decode: the card's keep set differs from the CPU's")
+        err = float((got[0][got[3]] - ref[0][ref[3]]).abs().max())
+        check(err <= 1e-3, f"centernet decode: boxes differ by {err}")
+        n = got[3].sum(1).tolist()
+        check(min(n) > 0, f"centernet decode: no detections {n}")
+        live = int((args[1] > 0).sum(1).min())
+
+        def synced_ms(fn):
+            laps = []
+            with torch.inference_mode():
+                for _ in range(reps + 1):
+                    self.sync()
+                    t0 = time.perf_counter()
+                    fn()
+                    self.sync()
+                    laps.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(laps[1:]))
+
+        decode_ms = synced_ms(lambda: cdec.decode_centernet(raw, **kw))
+        scan_ms = synced_ms(lambda: nms(*args, **k))
+        emit({"phase": "centernet_decode", "B": 8, "map": list(raw.shape),
+              "K": d.K, "kept": n, "scan_live_candidates_min": live,
+              "nms_launches": launches, "cpu_equal": True,
+              "box_max_abs_err_vs_cpu": err, "decode_ms": decode_ms,
+              "scan_ms": scan_ms, "scan_share_of_decode": scan_ms / decode_ms,
+              "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_serve_vs_direct(self, algo, model, imgs, results, phase):
+        """The served images again through ``_batched_detections`` (B=8,
+        conf 0.25, as the server calls it), outside the server: each image's
+        classes equal to the server's, its boxes (in the same order) within
+        1e-2 px of them."""
+        index = [(im,) for im in imgs]
+        direct = list(algo._batched_detections(model, index, 8, 0.25))
+        check(len(direct) == len(imgs), f"{phase}: {len(direct)} images")
+        box_err, n = 0.0, []
+        for i, boxes, _, classes in direct:
+            served = results[i][1]["detections"]
+            check([d["class_id"] for d in served] == classes.tolist(),
+                  f"{phase} image {i}: served classes differ from a direct "
+                  f"infer's")
+            if len(served):
+                box_err = max(box_err, float(np.abs(
+                    np.array([d["box"] for d in served]) - boxes).max()))
+            n.append(len(served))
+        check(box_err <= 1e-2, f"{phase}: served boxes {box_err} px from a "
+                               f"direct infer's")
+        emit({"phase": phase, "images": len(imgs), "detections": n,
+              "classes_equal": True, "box_max_abs_err": box_err})
 
     def bound(self, sb, ss, keep, thr):
         """Least time for the greedy keep mask on these inputs: bytes (boxes
@@ -3412,7 +3785,10 @@ def main() -> int:
         return 1
     # the port: absent when this file is copied out of the repository
     from tpucv_torch import _build
+    from tpucv_torch.algorithms import centernet as cn_algo_mod
     from tpucv_torch.ckpt.checkpoint import CheckPoint
+    from tpucv_torch.decode import centernet as cn_decode
+    from tpucv_torch.ops import nms as nms_mod
 
     # the whole output, beside the end that a caller may keep
     sys.stdout = Tee(sys.stdout,
@@ -3484,7 +3860,8 @@ def main() -> int:
     y7_decode_launches = smoke.phase_yolo7_decode(y7_algo, y7_model, imgs)
     y7_run = smoke.phase_family_trainer("yolo7")
     y7_sharp = smoke.family_sharpened("yolo7", y7_run)
-    y7_predict_launches = smoke.phase_yolo7_predict(y7_sharp, imgs)
+    y7_predict_launches = smoke.phase_scan_predict(
+        "yolo7", y7_sharp, imgs, 4096, (nms_mod, "dispatch_batched_nms"))
     y7_model.load_state_dict(CheckPoint.load_pure(y7_sharp))
     _, _, y7_serve_launches = smoke.phase_serve(
         y7_algo, y7_model, model_name="yolo7", phase="yolo7_serve", scan=True)
@@ -3513,6 +3890,32 @@ def main() -> int:
     smoke.phase_int8_parity(imgs, names=("ssd",), phase="ssd_int8")
     ssd_int8_launches = smoke.phase_family_int8_predict(
         "ssd", ssd_sharp, 1024, ssd_int8_outputs, INT8_COS_MIN_SSD)
+
+    cn_algo, cn_model = smoke.centernet_setup()
+    smoke.phase_centernet_parity(cn_algo, cn_model)
+    sharpen_centernet_(cn_model)
+    cn_decode_launches = smoke.phase_centernet_decode(cn_algo, cn_model, imgs)
+    cn_run = smoke.phase_family_trainer("centernet")
+    cn_sharp = smoke.family_sharpened("centernet", cn_run)
+    cn_scan = (cn_decode, "nms")
+    cn_predict_launches = smoke.phase_scan_predict(
+        "centernet", cn_sharp, imgs, cn_algo.cfg.decode.K, cn_scan)
+    cn_model.load_state_dict(CheckPoint.load_pure(cn_sharp))
+    cn_imgs, cn_results, cn_serve_launches = smoke.phase_serve(
+        cn_algo, cn_model, model_name="centernet", phase="centernet_serve",
+        scan=True)
+    smoke.phase_serve_vs_direct(cn_algo, cn_model, cn_imgs, cn_results,
+                                "centernet_serve_vs_direct")
+    cn_eval_launches = smoke.phase_family_evaluate(
+        "centernet", cn_sharp, K=100, scan=cn_scan,
+        decode=(cn_algo_mod, "decode_centernet"))
+    cn_map_launches = smoke.phase_family_eval_map(
+        cn_run, cn_sharp, "centernet_eval_map", K=100)
+    smoke.phase_int8_parity(imgs, names=("centernet",),
+                            phase="centernet_int8")
+    cn_int8_launches = smoke.phase_family_int8_predict(
+        "centernet", cn_sharp, 100, centernet_int8_outputs,
+        INT8_COS_MIN_CENTERNET)
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
     print(nvidia_smi(), flush=True)
@@ -3556,7 +3959,19 @@ def main() -> int:
                              "ssd_evaluate (B=32, K=1024)": ssd_eval_launches,
                              "ssd_eval_map (B=16, K=1024)": ssd_map_launches,
                              "ssd_int8_predict (B=1, K=1024)":
-                                 ssd_int8_launches},
+                                 ssd_int8_launches,
+                             "centernet_decode (DIoU: the scan)":
+                                 cn_decode_launches,
+                             "centernet_predict (DIoU: the scan)":
+                                 cn_predict_launches,
+                             "centernet_serve (DIoU: the scan)":
+                                 cn_serve_launches,
+                             "centernet_evaluate (DIoU: the scan)":
+                                 cn_eval_launches,
+                             "centernet_eval_map (DIoU: the scan)":
+                                 cn_map_launches,
+                             "centernet_int8_predict (DIoU: the scan)":
+                                 cn_int8_launches},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

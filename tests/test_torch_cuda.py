@@ -16,6 +16,8 @@ in other orders, and round once to bf16.
 The SSD cases of ``ops/nms_cases.py`` (K = 1,024 at B = 1, 8, 32, class
 offsets up to 19 x 7680 px) run with the other kernel cases, and SSD's
 decode is held through ``nms_keep`` against its plain version.
+CenterNet has no kernel: its forward, targets, loss and decode (DIoU NMS
+by the scan, ``nms_keep`` not launched) are held against the CPU.
 
 The training step has no kernel of its own; its tests at the end hold the
 card against the CPU: the TAL top-k's lowest-index tie order and the
@@ -861,3 +863,93 @@ def test_int_mm_shape_rule_is_what_gemm_dims_pads_for():
         with pytest.raises(RuntimeError):
             mm(M, K, N)
         assert int8_conv.gemm_dims(M, K, N) != (M, K, N)
+
+
+# ---------------------------------------------------------------------------
+# CenterNet on the card: no kernel of its own (its DIoU NMS is the scan,
+# nms_keep's criterion is plain IoU); the forward, the targets, the loss and
+# the decode against the CPU.
+
+def _centernet_setup():
+    from tpucv_torch.builder import export_from_registry
+
+    cfg, algo_cls, _ = export_from_registry("centernet")
+    model = algo_cls(cfg, device="cpu").init_variables(seed=0)
+    return cfg, model
+
+
+def _centernet_gt(B=2, M=30, S=384, seed=4):
+    rng = np.random.default_rng(seed)
+    cxy = rng.uniform(10, S - 10, (B, M, 2))
+    wh = rng.uniform(4, S * 0.7, (B, M, 2))
+    return {"gt_bboxes": torch.from_numpy(np.clip(np.concatenate(
+                [cxy - wh / 2, cxy + wh / 2], -1), 0, S).astype(np.float32)),
+            "gt_labels": torch.from_numpy(rng.integers(0, 20, (B, M))),
+            "gt_mask": torch.from_numpy(rng.random((B, M)) < 0.7)}
+
+
+def test_centernet_forward_on_the_card_equals_the_cpu(no_tf32):
+    """f32 (TF32 off), B=2 at 384: the heatmap, offset and size channels
+    each within 1e-4 of their largest |value|."""
+    _, model = _centernet_setup()
+    x = torch.from_numpy(np.random.default_rng(3).random(
+        (2, 384, 384, 3), dtype=np.float32))
+    with torch.inference_mode():
+        cpu = model(x)
+        card = copy.deepcopy(model).cuda().to(
+            memory_format=torch.channels_last)(x.cuda()).cpu()
+    assert card.shape == cpu.shape == (2, 96, 96, 24)
+    for sl in (slice(0, 20), slice(20, 22), slice(22, 24)):
+        c, g = cpu[..., sl], card[..., sl]
+        assert float((g - c).abs().max() / c.abs().max()) < 1e-4
+
+
+def test_centernet_targets_and_loss_on_the_card_equal_the_cpu():
+    """From the same raw maps and 30 GT rows an image: ind, mask, wh and reg
+    equal, the heatmap within 1e-6, the loss terms within 1e-5 relative."""
+    from tpucv_torch.targets.centernet import build_centernet_targets
+
+    from tpucv_torch.algorithms.centernet import CenterNetA
+
+    cfg, _ = _centernet_setup()
+    gt = _centernet_gt()
+    raw = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 2, (2, 96, 96, 24)).astype(np.float32))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        g = {k: v.to(dev) for k, v in gt.items()}
+        t = build_centernet_targets(g["gt_bboxes"], g["gt_labels"],
+                                    g["gt_mask"], 20, (96, 96), 4)
+        loss, parts = CenterNetA(cfg, device=dev).build_loss()(raw.to(dev), g)
+        outs.append(([v.cpu() for v in t], float(loss),
+                     {k: float(v) for k, v in parts.items()}))
+    (tc, lc, pc), (tg, lg, pg) = outs
+    for a, b in zip(tc[1:], tg[1:]):
+        assert torch.equal(a, b)
+    assert float((tc[0] - tg[0]).abs().max()) <= 1e-6
+    assert lg == pytest.approx(lc, rel=1e-5)
+    for k in pc:
+        assert pg[k] == pytest.approx(pc[k], rel=1e-5), k
+
+
+@pytest.mark.parametrize("diou", [True, False])
+def test_centernet_decode_on_the_card_equals_the_cpu(diou):
+    """decode_centernet (K 100, conf 0.1) on random maps at 96² (B=8): valid,
+    classes and scores equal, boxes within 1e-3 px; nms_keep not
+    launched (the DIoU NMS is the scan)."""
+    from tpucv_torch.decode.centernet import decode_centernet
+    from tpucv_torch.ops import cuda_nms as cn
+
+    rng = np.random.default_rng(6)
+    raw = rng.normal(0, 2, (8, 96, 96, 24)).astype(np.float32)
+    raw[..., 22:] = np.abs(raw[..., 22:]) * 4
+    raw = torch.from_numpy(raw)
+    kw = dict(num_classes=20, K=100, conf_threshold=0.1, use_diou_nms=diou)
+    before = cn.nms_keep.launches
+    got = [t.cpu() for t in decode_centernet(raw.cuda(), **kw)]
+    assert cn.nms_keep.launches == before
+    ref = decode_centernet(raw, **kw)
+    assert torch.equal(got[3], ref[3]) and int(got[3].sum()) > 0
+    assert torch.equal(got[2][got[3]], ref[2][ref[3]])
+    assert torch.equal(got[1], ref[1])
+    assert float((got[0] - ref[0]).abs().max()) <= 1e-3

@@ -35,6 +35,19 @@ reads them: ``vgg{k}_conv`` / ``vgg{k}_bn`` -> ``backbone.layers.{i}`` /
 / ``confs.{i}``; its quant entries (``vgg{k}_conv::qkernel``, at the
 model's own scope) go to the buffers of the conv they name.
 
+tpucv's ``CenterNet`` tree (top-level ``dla``, ``dla_up``, ``hm_0`` ...)
+maps onto the reference's names as ``import_centernet`` reads them:
+``dla`` -> ``backbone.base`` (``base`` -> ``base_layer``, ``level{i}`` ->
+``level_{i}``), ``dla_up`` -> ``backbone.dla_up``; a ConvBNReLU's
+``conv`` / ``bn`` -> ``.0`` / ``.1`` (a Root's keep their names), a
+BasicBlock's ``cv1/{conv,bn}`` and ``cv2_{conv,bn}`` -> ``conv1/bn1`` and
+``conv2/bn2``, a Tree's ``project_{conv,bn}`` -> ``project.{0,1}``; the
+heads ``{hm,wh,reg}_{0,1}`` -> ``backbone.{heatmap,wh,reg}.{0,2}``. The
+depthwise ``up_k`` kernels (k, k, 1, C) become ``ConvTranspose2d``'s
+(C, 1, k, k) as any HWIO kernel does. Its quant buffers live on the
+``HookedConv2d`` itself, so ``<scope>/conv::qkernel`` goes to
+``<scope>.0.qweight`` (``conv1``, ``root.conv``).
+
 The family is told by the tree's top-level names.
 """
 
@@ -98,6 +111,13 @@ for _k, _i in enumerate(_VGG_CONV_AT):
 _SSD_HEAD = re.compile(r"^(extra|loc|conf)(\d+)$")
 _SSD_PREFIX = {"extra": "extras.conv", "loc": "locs.", "conf": "confs."}
 
+# tpucv CenterNet part -> reference part
+_CN_HEAD = re.compile(r"^(hm|wh|reg)_([01])$")            # hm_1 -> heatmap.2
+_CN_HEAD_NAME = {"hm": "heatmap", "wh": "wh", "reg": "reg"}
+_CN_LEVEL = re.compile(r"^level(\d)$")                    # level3 -> level_3
+_CN_PART = {"base": "base_layer", "project_conv": "project.0",
+            "project_bn": "project.1", "cv2_conv": "conv2", "cv2_bn": "bn2"}
+
 
 def _walk(tree: Mapping, path=()):
     for k, v in tree.items():
@@ -138,14 +158,36 @@ def _ssd_name(path) -> str:
     return ".".join([mod, *mid, leaf])
 
 
+def _centernet_name(path) -> str:
+    top, *mid, leaf = path
+    m = _CN_HEAD.match(top)
+    if m:
+        return f"backbone.{_CN_HEAD_NAME[m[1]]}.{2 * int(m[2])}.{leaf}"
+    parts = ["backbone", "base" if top == "dla" else "dla_up"]
+    for k, p in enumerate(mid):
+        parent = mid[k - 1] if k else None
+        if p in ("conv", "bn") and parent == "cv1":
+            parts[-1] = p + "1"                       # cv1 -> conv1 / bn1
+        elif p in ("conv", "bn"):
+            parts.append(p if parent == "root" else
+                         "0" if p == "conv" else "1")
+        else:
+            lv = _CN_LEVEL.match(p)
+            parts.append(f"level_{lv[1]}" if lv else _CN_PART.get(p, p))
+    return ".".join([*parts, leaf])
+
+
 def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """tpucv ``{"params", "batch_stats"[, "quant"]}`` nested dicts of
     arrays -> the port's ``state_dict`` (f32 tensors; the quant buffers
     int8 and f32): ``Yolo8`` with any of its heads (ultralytics key names),
-    ``Yolo7`` or ``SSD`` (the reference's). Loads with ``strict=True``."""
+    ``Yolo7``, ``SSD`` or ``CenterNet`` (the reference's). Loads with
+    ``strict=True``."""
     top = variables.get("params", {})
+    centernet = "dla" in top
     name_of = (_yolo7_name if "stem0" in top else
-               _ssd_name if "vgg0_conv" in top else _torch_name)
+               _ssd_name if "vgg0_conv" in top else
+               _centernet_name if centernet else _torch_name)
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, v in _walk(variables.get(coll, {})):
@@ -166,8 +208,9 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         *mod, leaf = path
         conv, key = leaf.split("::")
         name, t = quant_buffer(f"conv::{key}", v)
-        # a ConvBnAct holds its conv's buffers; any other conv its own
-        scope = mod if conv == "conv" else [*mod, conv]
+        # a ConvBnAct holds its conv's buffers; any other conv (and every
+        # CenterNet conv, a HookedConv2d) its own
+        scope = mod if conv == "conv" and not centernet else [*mod, conv]
         sd[name_of((*scope, name))] = t
     return sd
 

@@ -1,6 +1,6 @@
 """Per-model configs (counterpart of ``tpucv/configs/model_cfgs.py``), with
 tpucv's hyperparameter values. Only the families the port has so far are
-here: YOLOv8 detect, seg and pose, YOLOv7 and SSD."""
+here: YOLOv8 detect, seg and pose, YOLOv7, SSD and CenterNet."""
 
 from __future__ import annotations
 
@@ -251,3 +251,47 @@ class SsdConfig(BaseConfig):
     def num_classes(self) -> int:
         """The dataset's classes plus the background, class 0."""
         return get_dataset_cfg(self.dataset.name)["num_classes"] + 1
+
+
+# ---------------------------------------------------------------- CenterNet
+@dataclass
+class CenterNetArch:
+    backbone: str = "dla34"
+    input_size: int = 384
+    downsample: int = 4
+    head_channels: int = 256
+
+
+@dataclass
+class CenterNetLoss:
+    hm_weight: float = 1.0
+    wh_weight: float = 0.1
+    off_weight: float = 1.0
+
+
+@dataclass
+class CenterNetDecode(DecodeCfg):
+    K: int = 100
+    conf_threshold: float = 0.1
+    use_diou_nms: bool = True
+    iou_threshold: float = 0.5
+
+
+@config_registry("centernet")
+@dataclass
+class CenterNetConfig(BaseConfig):
+    arch: CenterNetArch = field(default_factory=CenterNetArch)
+    loss: CenterNetLoss = field(default_factory=CenterNetLoss)
+    dataset: DatasetCfg = field(default_factory=lambda: DatasetCfg(
+        name="voc", input_size=384, max_num_boxes=30))
+    optimizer: OptimizerCfg = field(default_factory=lambda: OptimizerCfg(
+        name="adam", lr=1.25e-4, warmup_iters=1000, milestones=(90, 120)))
+    decode: CenterNetDecode = field(default_factory=CenterNetDecode)
+
+    @property
+    def model_name(self) -> str:
+        return "centernet"
+
+    @property
+    def num_classes(self) -> int:
+        return get_dataset_cfg(self.dataset.name)["num_classes"]

@@ -25,7 +25,9 @@ from tpucv_torch.predict import require_int8
 
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tpucv_torch.evaluate")
-    parser.add_argument("--model", type=str, required=True)
+    parser.add_argument("--model", type=str, required=True,
+                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd "
+                             "or centernet")
     parser.add_argument("--dataset", type=str, default=None,
                         choices=["voc", "coco"])
     parser.add_argument("--ckpt", type=str, default="",

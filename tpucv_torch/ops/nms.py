@@ -58,8 +58,11 @@ def nms(
     """Greedy NMS over N xyxy boxes by sequential scan. With ``diou=True``
     the criterion is distance-IoU (CenterNet's).
 
-    boxes (N, 4), scores (N,) with invalid candidates <= 0.
-    Returns (indices (max_det,) int32, valid (max_det,) bool)."""
+    boxes (N, 4), scores (N,) with invalid candidates <= 0, or a batch of
+    them, (B, N, 4) and (B, N), scanned together (tpucv vmaps its scan).
+    Returns (indices ([B,] max_det) int32, valid ([B,] max_det) bool)."""
+    if boxes.dim() == 3:
+        return _nms_scan(boxes, scores, iou_threshold, max_det, diou)
     idx, valid = _nms_scan(boxes[None], scores[None], iou_threshold,
                            max_det, diou)
     return idx[0], valid[0]

@@ -48,7 +48,9 @@ def summary(result: dict) -> str:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tpucv_torch.predict")
-    parser.add_argument("--model", type=str, required=True)
+    parser.add_argument("--model", type=str, required=True,
+                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd "
+                             "or centernet")
     parser.add_argument("--ckpt", type=str, default="",
                         help="a trainer checkpoint bundle, or a torch "
                              "state_dict with ultralytics key names")

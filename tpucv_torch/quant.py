@@ -23,8 +23,11 @@ buffers; in train mode it always runs the float path. ``HookedConv2d`` is a
 biased conv, paired with the BatchNorm after it (SSD's VGG: tpucv's
 ``conv_bn(use_bias=True)``, whose conv bias folds with the BN) or alone
 (SSD's conv6 / conv7: tpucv's ``conv_biased``, a ``NO_BN`` pair whose bias
-is the folded bias). The YOLO heads' final biased 1x1 convs, the DFL and
-SSD's extras and heads stay float, as in tpucv.
+is the folded bias). CenterNet's convs are ``HookedConv2d``s too: every
+DLA / IDAUp conv paired with its BatchNorm, and the heads' 3x3 convs
+alone. The YOLO heads' final biased 1x1 convs, the DFL, SSD's extras and
+heads, and CenterNet's 1x1 heads and transposed convs stay float, as in
+tpucv.
 
 Skips: convs whose per-group input width is below ``min_in_ch`` (the
 3-channel stem, depthwise convs), convs whose calibrated absmax is not

@@ -43,7 +43,9 @@ def build(argv=None):
     """Parse the flags, load the model and return the server, not yet
     serving (``main`` serves it)."""
     parser = argparse.ArgumentParser()
-    parser.add_argument("--model", type=str, required=True)
+    parser.add_argument("--model", type=str, required=True,
+                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd "
+                             "or centernet")
     parser.add_argument("--ckpt", type=str, default="",
                         help="a trainer checkpoint bundle, or a torch "
                              "state_dict with ultralytics key names")
