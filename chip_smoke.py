@@ -6,8 +6,9 @@ and in-training mAP on the trainer's checkpoint, YOLOv8-seg and
 YOLOv8-pose through their trainers, predict and evaluate, int8
 post-training quantization of all three (parity, bench, serve, predict,
 evaluate), YOLOv7-l through its forward, decode, trainer, predict,
-serve, evaluate, in-training mAP and int8 path, and SSD300 and
-CenterNet-DLA34 through the same paths.
+serve, evaluate, in-training mAP and int8 path, SSD300 and
+CenterNet-DLA34 through the same paths, and DeepLabV3+-ResNet101 through
+its forward, trainer, predict, evaluate, int8 path and bench line.
 
     python3 chip_smoke.py
 
@@ -269,11 +270,41 @@ script started); any failure exits non-zero:
             centernet_int8_predict: the predict CLI --int8 on
             centernet_predict's 5 images, and the int8 outputs against
             the float ones (cosine >= INT8_COS_MIN_CENTERNET).
+52. deeplab_parity  deeplabv3plus as shipped (DeepLabV3+-ResNet101, OS
+            16, nc 21, 513², focal loss), seed-0 weights: the f32 forward
+            (B=2) on the card against the CPU, the logits within
+            DEEPLAB_FWD_REL of their largest value; its conv GFLOPs an
+            image (hooks); the focal loss (a tenth of the labels 255)
+            within 1e-5 relative and the confusion matrix equal, card
+            against CPU; the bf16 forward at B=16 and ASPP's three dilated
+            3x3 convs alone (cuDNN) against their bound and undilated.
+53. deeplab_trainer  python -m tpucv_torch.train --model deeplabv3plus's
+            main as shipped (513², B=16, bf16, synthetic data: 2 batches an
+            epoch) for 8 steps, 4 epochs, as seg_trainer (saves at epochs
+            1 and 3); then deeplab_step: probes/train_step.py's measure at
+            B=16 (step and kernel ms, the host's ms from an idle device,
+            launches): device- or host-bound.
+54. deeplab_predict  the predict CLI on the serve images with the final
+            weights (no NMS: nms_keep's count 0): class maps and overlays;
+            ms an image by stage (decode, resize, device, colour + blend +
+            write).
+55. deeplab_evaluate  the evaluate CLI on a VOC segmentation root
+            written here (65 JPEGs, colour PNGs with 255 boundaries; B=32):
+            mIoU, images/s of the CLI and its loop, the card's histogram
+            equal to the CPU's over the recorded class maps, every pixel
+            counted or ignored; then the CLI with --int8.
+56. deeplab_eval  the trainer's evaluate_loop: val_mIoU and val_acc.
+57. deeplab_int8  quantize_variables on 8 images: 111 convs, card
+            accumulators bit-equal to the plain route's (5 dilated), the
+            int8 logits within DEEPLAB_INT8_REL of the float ones, cosine
+            and class agreement; the predict CLI --int8 on 5 images.
+58. deeplab_bench  python -m tpucv_torch.bench --model deeplabv3plus's line
+            (inference B=32, training B=16).
 
 The line before the last holds {"kernels": [...]} (nms_keep, with its
-launches on every path that runs it, the int8, YOLOv7, SSD and CenterNet
-ones included (CenterNet's, the DIoU scan, all 0), add_one, conv3x3); the
-last line is
+launches on every path that runs it, the int8, YOLOv7, SSD, CenterNet
+and DeepLab ones included (CenterNet's, the DIoU scan, and DeepLab's, no
+NMS, all 0), add_one, conv3x3); the last line is
 {"ok": true, "device": {...}}. The whole output is also written to
 chiprun_out/chip_smoke.log. Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -309,6 +340,12 @@ CENTERNET_FWD_REL = 1e-4   # CenterNet's f32 heatmap, offset and size
                            # largest value
 CENTERNET_QUANTIZED = 53   # every DLA / IDAUp conv + BN but the stem, the
                            # two dead projects included, and 3 head convs
+DEEPLAB_FWD_REL = 1e-4     # DeepLabV3+'s f32 logits, card against CPU,
+                           # against their largest value
+DEEPLAB_QUANTIZED = 111    # every ResNet-101 / ASPP / decoder conv + BN but
+                           # the 3-channel stem
+DEEPLAB_INT8_REL = 0.15    # tests/test_quant.py's bar for DeepLab's int8
+                           # logits against the float ones
 DIOU_SCAN = frozenset({"centernet"})   # families whose NMS is the DIoU
                                        # scan at every K: never nms_keep
 ROOT = Path(__file__).resolve().parent
@@ -648,6 +685,45 @@ def write_voc_root(root: Path, n: int) -> int:
     return n
 
 
+def write_voc_seg_root(root: Path, n: int):
+    """A VOC segmentation root (``JPEGImages/``, ``SegmentationClass/``,
+    ``ImageSets/Segmentation/val.txt``): ``n`` 640x480 JPEGs cut from
+    SyntheticSegIndex's 640x640 images (21 classes), their masks as colour
+    PNGs in VOC's palette with each object's edge drawn in VOC's boundary
+    colour (224, 224, 192), which reads as 255, ignored. Returns (the image
+    count, the boundary pixels written)."""
+    import cv2
+
+    from tpucv_torch.data.segmentation_dataset import (VOC_COLORMAP,
+                                                       SyntheticSegIndex)
+
+    src = SyntheticSegIndex(n, 640, 21, seed=5)
+    for d in ("JPEGImages", "SegmentationClass", "ImageSets/Segmentation"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    palette = np.asarray(VOC_COLORMAP, np.uint8)
+    ids, edges = [], 0
+    for i in range(n):
+        img, mask = src[i]
+        img, mask = img[:480], mask[:480]
+        img_id = f"{i:06d}"
+        ids.append(img_id)
+        rgb = palette[mask]
+        edge = np.zeros(mask.shape, bool)
+        edge[1:] |= mask[1:] != mask[:-1]
+        edge[:, 1:] |= mask[:, 1:] != mask[:, :-1]
+        rgb[edge] = (224, 224, 192)
+        edges += int(edge.sum())
+        check(cv2.imwrite(str(root / "JPEGImages" / f"{img_id}.jpg"),
+                          cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+              and cv2.imwrite(str(root / "SegmentationClass" /
+                                  f"{img_id}.png"),
+                              cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR)),
+              f"could not write {img_id}")
+    (root / "ImageSets" / "Segmentation" / "val.txt").write_text(
+        "\n".join(ids) + "\n")
+    return n, edges
+
+
 # the trainer phases' families: the arch field, input size and M as
 # shipped, the terms each logs, the term evaluate_loop must report, the
 # phase's name and how the run's final weights are sharpened for predict
@@ -684,6 +760,13 @@ TRAINED = {
                       desc="CenterNet-DLA34, nc 20, 384, B=16, M=30, bf16, "
                            "device augmentation, mosaic 0.5, synthetic "
                            "data"),
+    "deeplabv3plus": dict(arch=("backbone", "resnet101"), size=513, M=0,
+                          terms=("loss", "focal_loss"), val="val_mIoU",
+                          phase="deeplab_trainer", sharpen=None,
+                          desc="DeepLabV3+-ResNet101, OS 16, nc 21, 513² "
+                               "crops, B=16, bf16, focal loss, host scale "
+                               "jitter / crop / flip, synthetic data (32 "
+                               "images: 2 batches an epoch)"),
 }
 
 
@@ -1401,10 +1484,10 @@ class Smoke:
 
     def phase_family_trainer(self, name, steps=8, window=(4, 7)):
         """``python -m tpucv_torch.train --model <name>``'s main at the
-        shipped config (640², SSD's 300², B=16, bf16, the
-        synthetic fallback: 4 batches an epoch) for ``steps`` steps, 2
-        epochs, with evaluate_loop and the saves at epoch 2 (the
-        intervals set to 2 for the smoke). The losses, all finite; images/s
+        shipped config (640², SSD's 300², DeepLab's 513², B=16, bf16, the
+        synthetic fallback: 4 batches an epoch, DeepLab's 2) for ``steps``
+        steps, 2 epochs (DeepLab's 4), with evaluate_loop and the saves
+        every second epoch (the intervals set to 2 for the smoke). The losses, all finite; images/s
         over the ``window`` steps (host clock); the step on a
         device-resident batch (CUDA events) and its kernel time (profiler);
         peak memory."""
@@ -1464,8 +1547,11 @@ class Smoke:
               fam["val"] in val, f"{name}: evaluate_loop gave {val}")
         saves = sorted(os.listdir(out / "saves"))
         ds = trainer.cfg.dataset.name
-        check(saves == [f"{name}_{ds}_epoch-1.ckpt", f"{name}_{ds}_final.ckpt"],
-              f"{name}: saved {saves}")
+        epochs = -(-steps // len(feed))
+        want = sorted([f"{name}_{ds}_epoch-{e}.ckpt" for e in range(epochs)
+                       if e % 2 == 1 or e == epochs - 1]
+                      + [f"{name}_{ds}_final.ckpt"])
+        check(saves == want, f"{name}: saved {saves}, not {want}")
         a, b = window
         step_wall_ms = (feed.handed[b] - feed.handed[a]) / (b - a) * 1e3
 
@@ -1475,7 +1561,7 @@ class Smoke:
         prof_ms = self._kernel_ms_a_step(step, state, batch, 5)
         emit({"phase": fam["phase"],
               "config": f"{name} as shipped: {fam['desc']}",
-              "steps": steps, "epochs_run": 2, "train_s": train_s,
+              "steps": steps, "epochs_run": epochs, "train_s": train_s,
               "loss_logged": losses, "val": val, "saves": saves,
               "window_steps": list(window), "step_wall_ms": step_wall_ms,
               "img_per_s": 16 / step_wall_ms * 1e3,
@@ -3523,6 +3609,444 @@ class Smoke:
               "nvidia_smi": nvidia_smi()})
         return launches
 
+    # ------------------------------------------------------- DeepLabV3+ --
+    def deeplab_setup(self):
+        """deeplabv3plus as shipped: DeepLabV3+-ResNet101, output stride
+        16, nc 21, 513² crops, focal loss (alpha 0.25, gamma 2, ignore
+        255), Adam 7e-4 with 1,000 warmup steps, B=16, bf16; the algorithm
+        on the card and its seed-0 model."""
+        from tpucv_torch.builder import export_from_registry
+
+        cfg, algo_cls, _ = export_from_registry("deeplabv3plus")
+        a, l, o, t = cfg.arch, cfg.loss, cfg.optimizer, cfg.train
+        check((a.backbone, a.output_stride, a.crop_size, cfg.num_classes)
+              == ("resnet101", 16, 513, 21)
+              and (l.name, l.alpha, l.gamma, l.ignore_index)
+              == ("focal", 0.25, 2.0, 255)
+              and (o.lr, o.warmup_iters, o.milestones) == (7e-4, 1000,
+                                                           (60, 80))
+              and t.batch_size == 16 and t.mixed_precision,
+              "deeplabv3plus config is not as shipped")
+        algo = algo_cls(cfg, device=self.dev)
+        return algo, algo.init_variables(seed=0)
+
+    def phase_deeplab_parity(self, algo, model, B_time=16, reps=5):
+        """The f32 forward (TF32 off) of the seed-0 DeepLab at B=2, 513²,
+        card against CPU: the logits within DEEPLAB_FWD_REL of their largest
+        |value|; its convolutions' work an image counted by hooks
+        (``bench.conv_flops``). From the CPU's logits and labels drawn with
+        a tenth of the pixels ignored: the focal loss card against CPU
+        within 1e-5 relative, and the confusion matrix of the CPU's argmax
+        card against CPU, equal. Then in bf16 (channels_last, autocast) at
+        B=16: the forward's ms, and each of ASPP's three dilated 3x3 convs
+        alone (cuDNN through F.conv2d on its captured input) against its
+        bound and against the same conv undilated."""
+        import copy
+
+        import torch.nn.functional as F
+
+        from tpucv_torch.bench import conv_flops
+        from tpucv_torch.metrics.seg_metrics import confusion_matrix
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.probes.common import (H100_BF16_FLOPS,
+                                               H100_HBM_BYTES_PER_S, timed)
+
+        torch = self.torch
+        cpu = torch.device("cpu")
+        S, nc = algo.cfg.arch.crop_size, algo.nc
+        rng = np.random.default_rng(3)
+        x = torch.from_numpy(rng.normal(0, 1, (2, S, S, 3)).astype(
+            np.float32))
+        nms_keep.launches = 0
+        cpu_model = copy.deepcopy(model).to(
+            cpu, memory_format=torch.contiguous_format)
+        with torch.inference_mode():
+            ref = cpu_model(x)
+            got = model(x.to(self.dev)).cpu()
+        del cpu_model
+        check(bool(torch.isfinite(got).all()), "deeplab: non-finite logits")
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        check(rel <= DEEPLAB_FWD_REL, f"deeplab: the f32 forward on the card "
+                                      f"differs from the CPU by {rel}")
+        flops = conv_flops(model, S, self.dev)
+        labels = rng.integers(0, nc, (2, S, S)).astype(np.int32)
+        labels[rng.random((2, S, S)) < 0.1] = 255
+        labels = torch.from_numpy(labels)
+        loss_fn = algo.build_loss()
+        lc = float(loss_fn(ref, {"labels": labels})[0])
+        lg = float(loss_fn(ref.to(self.dev), {"labels": labels.to(
+            self.dev)})[0])
+        check(abs(lg - lc) <= 1e-5 * abs(lc),
+              f"deeplab: focal loss card {lg} against CPU {lc}")
+        pred = ref.argmax(1).to(torch.int32)
+        hc = confusion_matrix(pred, labels, nc)
+        hg = confusion_matrix(pred.to(self.dev), labels.to(self.dev),
+                              nc).cpu()
+        check(torch.equal(hc, hg), "deeplab: the confusion matrix on the "
+                                   "card differs from the CPU's")
+
+        xb = torch.rand((B_time, S, S, 3), device=self.dev)
+        aspp = model.classifier.aspp.convs
+        seen = {}
+        hooks = [aspp[i][0].register_forward_pre_hook(
+            lambda mod, inp, i=i: seen.setdefault(i, inp[0]))
+            for i in (1, 2, 3)]
+        with torch.inference_mode(), \
+                torch.autocast("cuda", dtype=torch.bfloat16):
+            model(xb)
+            for h in hooks:
+                h.remove()
+            fwd_ms = timed(lambda: model(xb), reps, self.dev)
+            dilated = {}
+            for i in (1, 2, 3):
+                c, xi = aspp[i][0], seen[i]
+                w = c.weight.to(torch.bfloat16)
+                y = F.conv2d(xi, w, None, 1, c.padding, c.dilation)
+                ms = timed(lambda: F.conv2d(xi, w, None, 1, c.padding,
+                                            c.dilation), 4 * reps, self.dev)
+                ms1 = timed(lambda: F.conv2d(xi, w, None, 1, 1, 1),
+                            4 * reps, self.dev)
+                ops = 2 * w.numel() * y.shape[0] * y.shape[2] * y.shape[3]
+                nbytes = 2 * (xi.numel() + w.numel() + y.numel())
+                t_ops = ops / H100_BF16_FLOPS * 1e3
+                t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+                dilated[f"rate_{c.dilation[0]}"] = {
+                    "shape": list(xi.shape), "ms": ms,
+                    "ms_undilated": ms1, "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes
+                    else "bytes", "tflops": ops / ms / 1e9,
+                    "share_of_bound": max(t_ops, t_bytes) / ms}
+        launches = nms_keep.launches
+        check(launches == 0, f"deeplab_parity: nms_keep launched {launches}")
+        emit({"phase": "deeplab_parity", "size": S, "batch": 2,
+              "forward_max_rel_err": rel,
+              "conv_gflops_per_image": flops / 1e9,
+              "focal_loss_cpu": lc, "focal_loss_card": lg,
+              "histogram_equal": True, "histogram_pixels": int(hc.sum()),
+              "bf16_forward_ms_B16": fwd_ms,
+              "bf16_forward_img_per_s": B_time / fwd_ms * 1e3,
+              "bf16_forward_tflops": flops * B_time / fwd_ms / 1e9,
+              "aspp_dilated_convs_B16": dilated,
+              "nms_keep_launches": launches, "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_deeplab_step(self, n=3):
+        """Whether DeepLab's train step is device- or host-bound
+        (``probes.train_step.measure`` at the shipped B=16, 513², bf16, on
+        a device-resident batch): the step's ms (CUDA events), its
+        kernels' ms (profiler), the host's ms to launch one step from an
+        idle device, its launches, syncs and copies; device-bound when
+        the kernels fill 90% of the step."""
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.probes import train_step
+
+        nms_keep.launches = 0
+        row = train_step.measure("deeplabv3plus", self.dev, 16, None, n)
+        launches = nms_keep.launches
+        busy = (row["kernel_ms"] or 0.0) / row["step_ms"]
+        emit({"phase": "deeplab_step", **row, "busy_share": busy,
+              "bound": "device" if busy >= 0.9 else "host",
+              "host_share_from_idle": row["host_ms_from_idle"]
+              / row["step_ms"], "nms_keep_launches": launches,
+              "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_deeplab_predict(self, ckpt, imgs, reps=3):
+        """``python -m tpucv_torch.predict --model deeplabv3plus``'s main on
+        the serve images (4 JPEGs, a PNG) with the trainer's final weights
+        (nms_keep's count zeroed just before, read just after: 0, no NMS):
+        drawn files, class maps of 513², overlays of each image's size;
+        then ms an image by stage (median of ``reps``): decode, the host
+        resize to 513², the device (H2D, forward, argmax) and the colour
+        map, nearest resize back, blend and JPEG write."""
+        import cv2
+
+        from tpucv_torch import predict as cli
+        from tpucv_torch.algorithms import segmentation_2d as seg_mod
+        from tpucv_torch.builder import export_from_registry
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        name = "deeplabv3plus"
+        out = ROOT / "saves" / "chip_smoke" / name / "predict"
+        out.mkdir(parents=True, exist_ok=True)
+        srcs = []
+        for k, img in enumerate(imgs[:5]):
+            srcs.append(str(out / f"img{k}{'.png' if k == 4 else '.jpg'}"))
+            check(cv2.imwrite(srcs[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
+                  f"could not write {srcs[-1]}")
+        nms_keep.launches = 0                # just before the path
+        t0 = time.perf_counter()
+        got = cli.main(["--model", name, "--ckpt", ckpt, "--src", *srcs,
+                        "--dst", str(out / "drawn")])
+        wall = time.perf_counter() - t0
+        launches = nms_keep.launches         # just after
+        check(launches == 0, f"deeplab predict: nms_keep launched {launches}")
+        for src, r, img in zip(srcs, got, imgs):
+            check(r["saved"] and Path(r["saved"]).is_file()
+                  and r["class_map"].shape == (513, 513)
+                  and r["overlay"].shape == img.shape,
+                  f"{src}: {r['saved']}, {r['class_map'].shape}")
+
+        cfg, algo_cls, _ = export_from_registry(name)
+        algo = algo_cls(cfg, device=self.dev)
+        model = algo.init_variables()
+        model.load_state_dict(CheckPoint.load_pure(ckpt))
+        rec = StageRecorder(self.sync)
+        rec.wrap(seg_mod, "read_image", "decode")
+        rec.wrap(seg_mod.DeeplabV3PlusA, "_resized", "resize")
+        infer = rec.wrapped(algo.make_predict_infer_fn(), "device")
+        laps = {k: [] for k in ("decode", "resize", "device",
+                                "colour_blend_write")}
+        try:
+            for _ in range(reps):
+                for src in srcs:
+                    rec.events.clear()
+                    t0 = time.perf_counter()
+                    algo.predict(model, src, infer_fn=infer,
+                                 save_dir=str(out / "timed"))
+                    total = (time.perf_counter() - t0) * 1e3
+                    ev = {k: (z - a) * 1e3 for k, a, z in rec.events}
+                    for k in ("decode", "resize", "device"):
+                        laps[k].append(ev[k])
+                    laps["colour_blend_write"].append(
+                        total - sum(ev.values()))
+        finally:
+            rec.restore()
+        med = {k: float(np.median(v)) for k, v in laps.items()}
+        emit({"phase": "deeplab_predict", "images": len(srcs),
+              "nms_keep_launches": launches, "cli_wall_s": wall,
+              "classes_per_image": [int(len(np.unique(r["class_map"])))
+                                    for r in got],
+              "ms_per_image": med, "ms_per_image_total": sum(med.values()),
+              "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_deeplab_evaluate(self, ckpt, batch=32):
+        """``python -m tpucv_torch.evaluate --model deeplabv3plus``'s main
+        on a VOC segmentation root written here (65 640x480 JPEGs, colour
+        PNGs whose objects are bordered in VOC's 255 boundary colour) with
+        the trainer's final weights, B=32 (nms_keep's count 0): mIoU and
+        accuracies, images/s of the CLI and of its evaluation loop alone;
+        every batch's class map and labels recorded at
+        ``SegmentationMetrics.update`` (a copy to the host a batch, inside
+        the CLI's time), and the histogram the card accumulated equal to
+        the one the CPU makes from them. Then the CLI again with
+        ``--int8`` (calibrated on the first 8 images)."""
+        import os
+
+        from tpucv_torch import evaluate as cli
+        from tpucv_torch.algorithms import segmentation_2d as seg_mod
+        from tpucv_torch.metrics import seg_metrics
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        torch = self.torch
+        base = ROOT / "saves" / "chip_smoke" / "deeplabv3plus" / "evaluate"
+        root = base / "voc"
+        n_img, ignored = write_voc_seg_root(root, 65)
+        argv = ["--model", "deeplabv3plus", "--ckpt", ckpt, "--batch-size",
+                str(batch)]
+        recorded, hists = [], []
+        real_update = seg_metrics.SegmentationMetrics.update
+
+        def update(metrics, pred, label):
+            recorded.append((pred.cpu(), label.cpu()))
+            real_update(metrics, pred, label)
+            hists.append(metrics.hist.copy())
+
+        rec = StageRecorder(self.sync)
+        env_was, cwd = os.environ.get("TPUCV_VOC_ROOT"), os.getcwd()
+        os.environ["TPUCV_VOC_ROOT"] = str(root)
+        os.chdir(base)
+        try:
+            seg_metrics.SegmentationMetrics.update = update
+            rec.wrap(seg_mod.DeeplabV3PlusA, "evaluate_on_voc", "loop")
+            try:
+                nms_keep.launches = 0        # just before the path
+                t0 = time.perf_counter()
+                res = cli.main(argv)
+                self.sync()
+                wall = time.perf_counter() - t0
+                launches = nms_keep.launches     # just after
+            finally:
+                rec.restore()
+                seg_metrics.SegmentationMetrics.update = real_update
+            nms_keep.launches = 0
+            t0 = time.perf_counter()
+            res_q = cli.main([*argv, "--int8"])
+            self.sync()
+            wall_q = time.perf_counter() - t0
+            launches += nms_keep.launches
+        finally:
+            os.chdir(cwd)
+            if env_was is None:
+                os.environ.pop("TPUCV_VOC_ROOT")
+            else:
+                os.environ["TPUCV_VOC_ROOT"] = env_was
+        check(launches == 0, f"deeplab evaluate: nms_keep launched {launches}")
+        keys = ("overall_acc", "mean_acc", "freq_weighted_acc", "mIoU")
+        check(all(np.isfinite(r[k]) for r in (res, res_q) for k in keys),
+              f"deeplab evaluate: {res}, int8 {res_q}")
+        check(len(recorded) == -(-n_img // batch),
+              f"{len(recorded)} recorded batches")
+        cpu_hist = sum(seg_metrics.confusion_matrix(p, l, 21)
+                       for p, l in recorded).double().numpy()
+        check(np.array_equal(hists[-1], cpu_hist),
+              "deeplab evaluate: the card's histogram differs from the "
+              "CPU's over the same class maps")
+        n_ignored = sum(int((l == 255).sum()) for _, l in recorded)
+        check(n_ignored > 0 and cpu_hist.sum() + n_ignored
+              == n_img * 513 * 513, "deeplab evaluate: ignored pixels "
+                                    f"{n_ignored}, counted {cpu_hist.sum()}")
+        loop_s = rec.events[0][2] - rec.events[0][1]
+        emit({"phase": "deeplab_evaluate", "images": n_img, "batch": batch,
+              **{k: res[k] for k in keys},
+              "int8": {k: res_q[k] for k in keys},
+              "cli_wall_s": wall, "img_per_s_cli": n_img / wall,
+              "img_per_s_loop": n_img / loop_s,
+              "int8_cli_wall_s": wall_q, "int8_img_per_s_cli": n_img / wall_q,
+              "histogram_equals_cpu": True,
+              "pixels_counted": int(cpu_hist.sum()),
+              "pixels_ignored": n_ignored,
+              "boundary_pixels_written": ignored,
+              "nms_keep_launches": launches, "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_deeplab_eval(self, run, reps=2):
+        """The trainer's ``evaluate_loop`` on the run's state (its 8 steps
+        and the trainer phase's 16 timing steps; 8 synthetic val images,
+        B=16): val_mIoU and val_acc finite, ms a call."""
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        trainer = run["trainer"]
+        nms_keep.launches = 0
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            val = trainer.evaluate_loop(trainer.state)
+            self.sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = nms_keep.launches
+        check(sorted(val) == ["val_acc", "val_mIoU"]
+              and all(np.isfinite(v) for v in val.values())
+              and launches == 0, f"deeplab evaluate_loop: {val}, "
+                                 f"{launches} nms_keep launches")
+        emit({"phase": "deeplab_eval", **val, "ms": float(np.median(ms)),
+              "images": len(trainer.val_loader.ds),
+              "nms_keep_launches": launches})
+        return launches
+
+    def phase_deeplab_int8(self, algo, ckpt, imgs):
+        """The trainer's final weights quantized by ``quantize_variables``
+        on 8 of the smoke's images (B=2): DEEPLAB_QUANTIZED convs, the
+        float model left float; one batch of 2 (resized to 513² as predict
+        does) through the int8 model with every quantized conv's input
+        captured: the card route's int32 accumulators (im2col +
+        ``torch._int_mm``) bit-equal to the plain route's, the dilated 3x3s
+        and the pool branch's 1x1 on a 1x1 map among them. The int8
+        logits against the float model's: max relative error within
+        tpucv's bar (DEEPLAB_INT8_REL), cosine and the share of pixels
+        whose class agrees. Then the predict CLI with ``--int8`` on
+        deeplab_predict's 5 images: drawn files."""
+        from tpucv_torch import predict as cli
+        from tpucv_torch import quant
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops import int8_conv
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.preprocess import (imagenet_normalize,
+                                                normalize_images)
+
+        torch = self.torch
+        nms_keep.launches = 0
+        model = algo.init_variables()
+        model.load_state_dict(CheckPoint.load_pure(ckpt))
+        t0 = time.perf_counter()
+        q = algo.quantize_variables(model, [(im,) for im in imgs[:8]],
+                                    n_images=8, batch_size=2)
+        self.sync()
+        calib_s = time.perf_counter() - t0
+        n_q = quant.count_quantized(q)
+        check(n_q == DEEPLAB_QUANTIZED and quant.count_quantized(model) == 0,
+              f"deeplab: {n_q} quantized convs, not {DEEPLAB_QUANTIZED}")
+        u8 = torch.from_numpy(np.stack([algo._resized(im)
+                                        for im in imgs[:2]])).to(self.dev)
+        seen = []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, inp, n=n: seen.append((n, mod, inp[0])))
+            for n, m in quant.hooked(q) if m.qweight is not None]
+        try:
+            with torch.inference_mode(), \
+                    torch.autocast("cuda", dtype=torch.bfloat16):
+                x = imagenet_normalize(normalize_images(u8, algo.dtype))
+                qy = q(x)
+        finally:
+            for h in hooks:
+                h.remove()
+        with torch.inference_mode(), \
+                torch.autocast("cuda", dtype=torch.bfloat16):
+            fy = model(x)
+        check(len(seen) == n_q, f"deeplab: {len(seen)} of {n_q} quantized "
+                                f"convs ran")
+        dilated, peak = 0, 0
+        with torch.inference_mode():
+            for n, m, xi in seen:
+                c = m.conv
+                geom = (c.kernel_size, c.stride, c.padding, c.dilation,
+                        c.groups)
+                xq = quant.quantize_activation(xi, m.xscale)
+                card = int8_conv.conv_gemm(xq, m.qweight, *geom)
+                plain = int8_conv.conv_plain(xq, m.qweight, *geom)
+                self.sync()
+                bad = int((card != plain).sum())
+                check(bad == 0, f"deeplab {n}: {bad} int32 accumulators of "
+                                f"the card route differ from the plain one")
+                peak = max(peak, int(plain.abs().max()))
+                dilated += c.dilation[0] > 1
+        check(dilated == 5, f"deeplab: {dilated} dilated quantized convs")
+        fy, qy = fy.float(), qy.float()
+        rel = float((qy - fy).abs().max() / fy.abs().max())
+        cos = float((fy * qy).sum() / (fy.norm() * qy.norm()))
+        agree = float((fy.argmax(1) == qy.argmax(1)).float().mean())
+        check(rel <= DEEPLAB_INT8_REL, f"deeplab int8 logits {rel} of the "
+                                       f"largest from the float ones")
+        out = ROOT / "saves" / "chip_smoke" / "deeplabv3plus" / "predict"
+        srcs = sorted(str(p) for p in out.glob("img*.*"))
+        got = cli.main(["--model", "deeplabv3plus", "--ckpt", ckpt, "--int8",
+                        "--src", *srcs, "--dst", str(out / "int8")])
+        check(len(got) == 5 and all(r["saved"] and Path(r["saved"]).is_file()
+                                    for r in got),
+              "a deeplab int8 image was not drawn")
+        launches = nms_keep.launches
+        check(launches == 0, f"deeplab int8: nms_keep launched {launches}")
+        emit({"phase": "deeplab_int8", "count_quantized": n_q,
+              "convs_compared": len(seen), "accumulators_bit_equal": True,
+              "dilated_convs": dilated, "max_abs_accumulator": peak,
+              "calibrate_s": calib_s, "logits_max_rel_err": rel,
+              "logits_cosine": cos, "class_agree_share": agree,
+              "predict_int8_images": len(got), "nms_keep_launches": launches})
+        return launches
+
+    def phase_deeplab_bench(self):
+        """``python -m tpucv_torch.bench --model deeplabv3plus``'s main:
+        tpucv's ``bench_family`` line (inference B=32, training B=16, at
+        513², bf16), finite, with nms_keep's count (0)."""
+        from tpucv_torch import bench
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        nms_keep.launches = 0
+        line = bench.main(["--model", "deeplabv3plus"])
+        launches = nms_keep.launches
+        check(line["metric"] ==
+              "deeplabv3plus_513_e2e_images_per_sec_per_chip"
+              and (line["infer_batch"], line["train_batch"]) == (32, 16)
+              and all(np.isfinite(line[k]) for k in (
+                  "value", "train_img_per_sec", "train_step_ms")),
+              f"deeplab bench: {line}")
+        check(launches == 0, f"deeplab bench: nms_keep launched {launches}")
+        emit({"phase": "deeplab_bench", "line": line,
+              "nms_keep_launches": launches})
+        return launches
+
     def phase_serve_vs_direct(self, algo, model, imgs, results, phase):
         """The served images again through ``_batched_detections`` (B=8,
         conf 0.25, as the server calls it), outside the server: each image's
@@ -3789,6 +4313,7 @@ def main() -> int:
     from tpucv_torch.ckpt.checkpoint import CheckPoint
     from tpucv_torch.decode import centernet as cn_decode
     from tpucv_torch.ops import nms as nms_mod
+    from tpucv_torch.ops.cuda_nms import nms_keep
 
     # the whole output, beside the end that a caller may keep
     sys.stdout = Tee(sys.stdout,
@@ -3916,6 +4441,23 @@ def main() -> int:
     cn_int8_launches = smoke.phase_family_int8_predict(
         "centernet", cn_sharp, 100, centernet_int8_outputs,
         INT8_COS_MIN_CENTERNET)
+
+    dl_algo, dl_model = smoke.deeplab_setup()
+    dl = {"deeplab_parity (B=2 and 16)": smoke.phase_deeplab_parity(
+        dl_algo, dl_model)}
+    del dl_model
+    nms_keep.launches = 0                    # just before the path
+    dl_run = smoke.phase_family_trainer("deeplabv3plus")
+    dl["deeplab_trainer"] = nms_keep.launches
+    check(dl["deeplab_trainer"] == 0, "the deeplab trainer launched nms_keep")
+    dl["deeplab_step (B=16)"] = smoke.phase_deeplab_step()
+    dl_ckpt = dl_run["final_path"]
+    dl["deeplab_predict"] = smoke.phase_deeplab_predict(dl_ckpt, imgs)
+    dl["deeplab_evaluate (B=32, and --int8)"] = smoke.phase_deeplab_evaluate(
+        dl_ckpt)
+    dl["deeplab_eval (evaluate_loop)"] = smoke.phase_deeplab_eval(dl_run)
+    dl["deeplab_int8"] = smoke.phase_deeplab_int8(dl_algo, dl_ckpt, imgs)
+    dl["deeplab_bench"] = smoke.phase_deeplab_bench()
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
     print(nvidia_smi(), flush=True)
@@ -3971,7 +4513,8 @@ def main() -> int:
                              "centernet_eval_map (DIoU: the scan)":
                                  cn_map_launches,
                              "centernet_int8_predict (DIoU: the scan)":
-                                 cn_int8_launches},
+                                 cn_int8_launches,
+                             **{f"{k}: no NMS": v for k, v in dl.items()}},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

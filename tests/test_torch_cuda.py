@@ -953,3 +953,84 @@ def test_centernet_decode_on_the_card_equals_the_cpu(diou):
     assert torch.equal(got[2][got[3]], ref[2][ref[3]])
     assert torch.equal(got[1], ref[1])
     assert float((got[0] - ref[0]).abs().max()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# DeepLabV3+ on the card: no kernel of its own (cuDNN convs, F.interpolate,
+# torch.bincount); the forward, the confusion matrix and the int8 routes
+# against the CPU and the plain route.
+
+def _deeplab_model(backbone="resnet50"):
+    from tpucv_torch.models.deeplabv3plus import DeeplabV3Plus
+
+    return DeeplabV3Plus(21, backbone).reset_parameters(
+        torch.Generator().manual_seed(0)).eval()
+
+
+def test_deeplab_forward_on_the_card_equals_the_cpu(no_tf32):
+    """ResNet-101, f32 (TF32 off), B=2 at 129²: the logits within 1e-4 of
+    their largest |value|."""
+    model = _deeplab_model("resnet101")
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (2, 129, 129, 3)).astype(np.float32))
+    with torch.inference_mode():
+        cpu = model(x)
+        card = copy.deepcopy(model).cuda().to(
+            memory_format=torch.channels_last)(x.cuda()).cpu()
+    assert card.shape == cpu.shape == (2, 21, 129, 129)
+    assert float((card - cpu).abs().max() / cpu.abs().max()) < 1e-4
+
+
+def test_deeplab_confusion_matrix_on_the_card_equals_the_cpu():
+    """B=32 at 513² (8.4 M pixels, ignore and out-of-range labels): the
+    integer histogram equal."""
+    from tpucv_torch.metrics.seg_metrics import confusion_matrix
+
+    g = torch.Generator().manual_seed(7)
+    label = torch.randint(0, 21, (32, 513, 513), generator=g,
+                          dtype=torch.int32)
+    label[torch.rand(label.shape, generator=g) < 0.1] = 255
+    label[torch.rand(label.shape, generator=g) < 0.01] = -1
+    pred = torch.randint(-1, 23, label.shape, generator=g, dtype=torch.int32)
+    cpu = confusion_matrix(pred, label, 21)
+    card = confusion_matrix(pred.cuda(), label.cuda(), 21).cpu()
+    assert card.dtype == torch.int64 and torch.equal(card, cpu)
+    assert int(cpu.sum()) == int(((label >= 0) & (label < 21)).sum())
+
+
+def test_deeplab_int8_routes_bit_equal():
+    """ResNet-50 quantized on the card (bf16 autocast, 2 images of 129²):
+    every quantized conv's int32 accumulators, the card's GEMM route
+    against the plain route on the same int8 input, bit-equal, the dilated
+    3x3s and the pool branch's 1x1 on a 1x1 map among them."""
+    from tpucv_torch import quant
+    from tpucv_torch.ops import int8_conv
+
+    model = copy.deepcopy(_deeplab_model()).cuda().to(
+        memory_format=torch.channels_last)
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (2, 129, 129, 3)).astype(np.float32)).cuda()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        q = quant.quantize_for_inference(model, [x])
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp, name=name: seen.append((name, mod, inp[0])))
+        for name, m in quant.hooked(q) if m.qweight is not None]
+    try:
+        with torch.inference_mode(), torch.autocast("cuda",
+                                                    dtype=torch.bfloat16):
+            q(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(seen) == quant.count_quantized(q) == 60
+    dilated = 0
+    for name, m, xi in seen:
+        c = m.conv
+        xq = quant.quantize_activation(xi, m.xscale)
+        geom = (c.kernel_size, c.stride, c.padding, c.dilation, c.groups)
+        got = int8_conv.int8_conv(xq, m.qweight, *geom)
+        want = int8_conv.conv_plain(xq, m.qweight, *geom)
+        assert torch.equal(got, want), name
+        dilated += c.dilation[0] > 1
+    assert dilated == 5

@@ -42,7 +42,11 @@ def test_sources_found():
                  "algorithms/yolov8_seg.py", "trainer/yolo8_pose_train.py",
                  "models/yolov7.py", "decode/yolov7.py", "losses/yolov7.py",
                  "algorithms/yolov7.py", "trainer/yolo7_train.py",
-                 "deploy.py", "probes/train_step.py"):
+                 "deploy.py", "probes/train_step.py", "models/resnet.py",
+                 "models/deeplabv3plus.py", "losses/segmentation.py",
+                 "metrics/seg_metrics.py", "data/segmentation_dataset.py",
+                 "algorithms/segmentation_2d.py",
+                 "trainer/segmentation_trainer.py"):
         assert ROOT / "tpucv_torch" / name in SOURCES, name
 
 

@@ -58,7 +58,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_yolov8 import randomize_bn
+from test_torch_yolov7 import randomize_bn
 from tpucv.builder import export_from_registry as tpucv_export
 from tpucv.ckpt.importer import import_ssd
 from tpucv.decode.ssd import decode_ssd as j_decode

@@ -38,6 +38,17 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def seeded_model(model: nn.Module, seed: int, device) -> nn.Module:
+    """``model`` with random weights drawn from ``torch.Generator`` seeded
+    with ``seed`` (its ``reset_parameters``), in eval mode on ``device``
+    (``channels_last`` on CUDA)."""
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model = model.to(device).eval()
+    if torch.device(device).type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model
+
+
 class DetectionAlgorithm:
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
@@ -67,12 +78,7 @@ class DetectionAlgorithm:
         seeded with ``seed``, in eval mode on the algorithm's device
         (``channels_last`` on CUDA). Load trained weights into it with
         ``load_state_dict``."""
-        model = self.build_model()
-        model.reset_parameters(torch.Generator().manual_seed(seed))
-        model = model.to(self.device).eval()
-        if self.device.type == "cuda":
-            model = model.to(memory_format=torch.channels_last)
-        return model
+        return seeded_model(self.build_model(), seed, self.device)
 
     # -------- int8 post-training quantization -----------------------------
     def quantize_variables(self, model: nn.Module, index, n_images: int = 32,

@@ -31,6 +31,17 @@ Prints one JSON line with ``bench.py``'s keys:
   Where the native library is unavailable (it needs libjpeg's headers to
   build) the four stay null and ``notes`` says why.
 
+``--model ssd|centernet|yolo7|deeplabv3plus`` runs ``bench.py:
+bench_family`` instead, the headline left as it is: the registered
+algorithm's own uint8 inference function (``make_infer_fn``) on two
+device-resident batches, 20 timed calls, and ``train.state``'s step
+(Adam 1e-3, EMA 0.9999, bf16 autocast) on a batch made on the device,
+15 timed steps, at tpucv's batches (inference 64 / 64 / 32 / 32, training
+64 / 32 / 32 / 16). DeepLab trains on dense label maps, the detectors on
+32 GT rows an image. One JSON line: ``{name}_{S}_e2e_images_per_sec_per_
+chip`` (``per_cpu`` with ``--device cpu``), ``infer_batch``,
+``train_img_per_sec``, ``train_step_ms`` and ``train_batch``.
+
 Card times come from CUDA events around many calls after warm-up
 (``probes.common.timed``); the train step's split into stages from the
 host clock with a sync after each stage. With
@@ -372,14 +383,106 @@ def bench_train(dev: torch.device,
     return out
 
 
+# bench.py:bench_family's batches: (inference, training)
+FAMILY_BATCHES = {"ssd": (64, 64), "centernet": (64, 32), "yolo7": (32, 32),
+                  "deeplabv3plus": (32, 16)}
+FAMILY_GT_ROWS = 32
+FAMILY_ITERS = (20, 15)           # timed inference calls, timed steps
+
+
+def family_batch(name: str, cfg, B: int, S: int, dev: torch.device,
+                 images_dtype: torch.dtype, seed: int = 0):
+    """``bench.py:bench_family``'s train batch, made on ``dev`` from a
+    ``torch.Generator``: images uniform in [0, 1); DeepLab's labels uniform
+    over its classes, the detectors' ``FAMILY_GT_ROWS`` GT rows of boxes
+    uniform in [0, 0.45 S) (some inverted, as there), every row real."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.rand((B, S, S, 3), generator=g, device=dev).to(
+        images_dtype)
+    nc = cfg.num_classes
+    if name == "deeplabv3plus":
+        return {"images": images,
+                "labels": torch.randint(0, nc, (B, S, S), generator=g,
+                                        device=dev, dtype=torch.int32)}
+    M = FAMILY_GT_ROWS
+    return {"images": images,
+            "gt_labels": torch.randint(0, nc, (B, M), generator=g,
+                                       device=dev, dtype=torch.int32),
+            "gt_bboxes": torch.rand((B, M, 4), generator=g, device=dev)
+            * (S * 0.45),
+            "gt_mask": torch.ones((B, M), dtype=torch.bool, device=dev)}
+
+
+def bench_family(name: str, dev: torch.device,
+                 small: bool = False) -> Dict[str, object]:
+    """``bench.py:bench_family`` for one of ``FAMILY_BATCHES``' families:
+    its inference function and its train step, timed with
+    ``probes.common.timed`` (CUDA events on the card). ``small``: batch 2
+    and a small input (SSD keeps 300, its priors' size; DeepLab on
+    ResNet-50), 2 calls each, for a run on the CPU."""
+    cfg, algo_cls, _ = export_from_registry(name)
+    amp = dev.type == "cuda"
+    cfg.train.mixed_precision = amp
+    seg = name == "deeplabv3plus"
+    B_inf, B_tr = FAMILY_BATCHES[name]
+    n_inf, n_tr = FAMILY_ITERS
+    if small:
+        B_inf = B_tr = 2
+        n_inf = n_tr = 2
+        if seg:
+            cfg.arch.backbone = "resnet50"
+            cfg.arch.crop_size = cfg.arch.input_size = 65
+        if name != "ssd":
+            cfg.dataset.input_size = 65 if seg else 128
+    algo = algo_cls(cfg, device=dev)
+    S = cfg.arch.crop_size if seg else cfg.dataset.input_size
+    model = algo.init_variables(seed=0)
+    infer = algo.make_infer_fn()
+    rng = np.random.default_rng(0)
+    resident = [torch.from_numpy(rng.integers(
+        0, 255, (B_inf, S, S, 3), dtype=np.uint8)).to(dev) for _ in range(2)]
+    n = itertools.count()
+    ms = timed(lambda: infer(model, resident[next(n) % 2]), n_inf, dev)
+
+    state = TrainState.create(model, 1e-3, use_ema=True)
+    step = make_train_step(algo.build_loss(), device=dev, ema_decay=0.9999,
+                           mixed_precision=amp)
+    batch = family_batch(name, cfg, B_tr, S, dev,
+                         torch.bfloat16 if amp else torch.float32)
+    last = {}
+
+    def one():
+        nonlocal state, last
+        state, last = step(state, batch)
+
+    step_ms = timed(one, n_tr, dev)
+    loss = float(last["loss"])
+    if not np.isfinite(loss):
+        raise RuntimeError(f"{name}: non-finite training loss {loss}")
+    where = "chip" if dev.type == "cuda" else "cpu"
+    return {"metric": f"{name}_{S}_e2e_images_per_sec_per_{where}",
+            "value": B_inf * 1e3 / ms, "unit": "img/s",
+            "infer_batch": B_inf,
+            "train_img_per_sec": B_tr * 1e3 / step_ms,
+            "train_step_ms": step_ms, "train_batch": B_tr,
+            "train_loss": loss, "device": card(dev)}
+
+
 def main(argv: Optional[list] = None) -> Dict[str, object]:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--small", action="store_true",
                    help="tiny shapes, for a run on the CPU")
+    p.add_argument("--model", default=None, choices=sorted(FAMILY_BATCHES),
+                   help="per-family bench (bench.py:bench_family) instead "
+                        "of the YOLOv8 headline")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.model:
+        line = bench_family(args.model, dev, args.small)
+        print(json.dumps(line), flush=True)
+        return line
     shapes = SMALL if args.small else FULL
 
     model = yolo8n(dev)

@@ -2,7 +2,7 @@
 families the port has so far; the others join as their slices land."""
 
 MODELS = ["yolo8_det", "yolo8_seg", "yolo8_pose", "yolo7", "ssd",
-          "centernet"]
+          "centernet", "deeplabv3plus"]
 
 
 def check_model_name(name: str) -> None:

@@ -48,6 +48,18 @@ depthwise ``up_k`` kernels (k, k, 1, C) become ``ConvTranspose2d``'s
 ``HookedConv2d`` itself, so ``<scope>/conv::qkernel`` goes to
 ``<scope>.0.qweight`` (``conv1``, ``root.conv``).
 
+tpucv's ``DeeplabV3Plus`` tree (top-level ``backbone``, ``aspp``,
+``low_proj``, ``dec1``, ``classifier``) maps onto the reference's names
+as ``import_deeplab`` reads them: ``backbone/stem`` -> ``backbone.conv1``
+/ ``bn1``, ``backbone/layer{L}_{b}/cv{i}`` -> ``backbone.layer{L}.{b}``'s
+``conv{i}`` / ``bn{i}`` and ``down`` -> ``downsample.{0,1}``;
+``aspp/b{i}`` -> ``classifier.aspp.convs.{i}.{0,1}``, ``aspp/pool`` ->
+``classifier.aspp.convs.4.{1,2}``, ``aspp/proj`` ->
+``classifier.aspp.project.{0,1}``, ``low_proj`` ->
+``classifier.project.{0,1}``, ``dec1`` -> ``classifier.classifier.{0,1}``
+and the biased ``classifier`` -> ``classifier.classifier.3``. Its quant
+buffers, as CenterNet's, live on the ``HookedConv2d``.
+
 The family is told by the tree's top-level names.
 """
 
@@ -119,6 +131,15 @@ _CN_PART = {"base": "base_layer", "project_conv": "project.0",
             "project_bn": "project.1", "cv2_conv": "conv2", "cv2_bn": "bn2"}
 
 
+# tpucv DeepLab head part -> reference module, and the (conv, bn) slots
+_DL_HEAD = {"aspp/pool": ("classifier.aspp.convs.4", "1", "2"),
+            "aspp/proj": ("classifier.aspp.project", "0", "1"),
+            "low_proj": ("classifier.project", "0", "1"),
+            "dec1": ("classifier.classifier", "0", "1")}
+_DL_BLOCK = re.compile(r"^layer(\d)_(\d+)$")           # layer3_22 -> layer3.22
+_DL_ASPP = re.compile(r"^b(\d)$")                       # b2 -> convs.2
+
+
 def _walk(tree: Mapping, path=()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
@@ -177,17 +198,39 @@ def _centernet_name(path) -> str:
     return ".".join([*parts, leaf])
 
 
+def _deeplab_name(path) -> str:
+    *mid, child, leaf = path
+    if mid == []:                                   # the 1x1 classifier
+        return f"classifier.classifier.3.{leaf}"
+    if mid[0] == "backbone":
+        if mid[1] == "stem":
+            return f"backbone.{child}1.{leaf}"      # conv1 / bn1
+        m = _DL_BLOCK.match(mid[1])
+        block = f"backbone.layer{m[1]}.{m[2]}"
+        if mid[2] == "down":
+            return f"{block}.downsample.{0 if child == 'conv' else 1}.{leaf}"
+        return f"{block}.{child}{mid[2][2:]}.{leaf}"  # cv2/bn -> bn2
+    m = _DL_ASPP.match(mid[-1])
+    if m:
+        mod, conv, bn = f"classifier.aspp.convs.{m[1]}", "0", "1"
+    else:
+        mod, conv, bn = _DL_HEAD["/".join(mid)]
+    return f"{mod}.{conv if child == 'conv' else bn}.{leaf}"
+
+
 def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """tpucv ``{"params", "batch_stats"[, "quant"]}`` nested dicts of
     arrays -> the port's ``state_dict`` (f32 tensors; the quant buffers
     int8 and f32): ``Yolo8`` with any of its heads (ultralytics key names),
-    ``Yolo7``, ``SSD`` or ``CenterNet`` (the reference's). Loads with
-    ``strict=True``."""
+    ``Yolo7``, ``SSD``, ``CenterNet`` or ``DeeplabV3Plus`` (the
+    reference's). Loads with ``strict=True``."""
     top = variables.get("params", {})
     centernet = "dla" in top
+    deeplab = "aspp" in top
     name_of = (_yolo7_name if "stem0" in top else
                _ssd_name if "vgg0_conv" in top else
-               _centernet_name if centernet else _torch_name)
+               _centernet_name if centernet else
+               _deeplab_name if deeplab else _torch_name)
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, v in _walk(variables.get(coll, {})):
@@ -209,8 +252,9 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         conv, key = leaf.split("::")
         name, t = quant_buffer(f"conv::{key}", v)
         # a ConvBnAct holds its conv's buffers; any other conv (and every
-        # CenterNet conv, a HookedConv2d) its own
-        scope = mod if conv == "conv" and not centernet else [*mod, conv]
+        # CenterNet and DeepLab conv, a HookedConv2d) its own
+        own = conv != "conv" or centernet or deeplab
+        scope = [*mod, conv] if own else mod
         sd[name_of((*scope, name))] = t
     return sd
 

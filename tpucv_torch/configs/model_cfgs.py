@@ -1,6 +1,7 @@
 """Per-model configs (counterpart of ``tpucv/configs/model_cfgs.py``), with
 tpucv's hyperparameter values. Only the families the port has so far are
-here: YOLOv8 detect, seg and pose, YOLOv7, SSD and CenterNet."""
+here: YOLOv8 detect, seg and pose, YOLOv7, SSD, CenterNet and
+DeepLabV3+."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ from dataclasses import dataclass, field
 from typing import Tuple
 
 from tpucv_torch.configs.base import (BaseConfig, DatasetCfg, DecodeCfg,
-                                      OptimizerCfg)
+                                      OptimizerCfg, TrainCfg)
 from tpucv_torch.configs.dataset_cfg import get_dataset_cfg
 from tpucv_torch.registry import config_registry
 
@@ -295,3 +296,40 @@ class CenterNetConfig(BaseConfig):
     @property
     def num_classes(self) -> int:
         return get_dataset_cfg(self.dataset.name)["num_classes"]
+
+
+# -------------------------------------------------------------- DeepLabV3+
+@dataclass
+class DeeplabArch:
+    backbone: str = "resnet101"
+    output_stride: int = 16
+    input_size: int = 513
+    crop_size: int = 513
+
+
+@dataclass
+class DeeplabLoss:
+    name: str = "focal"               # "ce" | "focal"
+    alpha: float = 0.25
+    gamma: float = 2.0
+    ignore_index: int = 255
+
+
+@config_registry("deeplabv3plus")
+@dataclass
+class DeeplabV3PlusConfig(BaseConfig):
+    arch: DeeplabArch = field(default_factory=DeeplabArch)
+    loss: DeeplabLoss = field(default_factory=DeeplabLoss)
+    dataset: DatasetCfg = field(default_factory=lambda: DatasetCfg(
+        name="voc", input_size=513, max_num_boxes=0))
+    optimizer: OptimizerCfg = field(default_factory=lambda: OptimizerCfg(
+        name="adam", lr=7e-4, warmup_iters=1000, milestones=(60, 80)))
+    train: TrainCfg = field(default_factory=lambda: TrainCfg(eval_interval=5))
+
+    @property
+    def model_name(self) -> str:
+        return "deeplabv3plus"
+
+    @property
+    def num_classes(self) -> int:
+        return 21                     # VOC's 20 classes and the background

@@ -26,8 +26,8 @@ from tpucv_torch.predict import require_int8
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tpucv_torch.evaluate")
     parser.add_argument("--model", type=str, required=True,
-                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd "
-                             "or centernet")
+                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd, "
+                             "centernet or deeplabv3plus")
     parser.add_argument("--dataset", type=str, default=None,
                         choices=["voc", "coco"])
     parser.add_argument("--ckpt", type=str, default="",

@@ -62,6 +62,39 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+class StepDropout(nn.Module):
+    """Dropout whose training mask is drawn from a ``torch.Generator``
+    seeded with ``seed``, which the train step sets before each forward
+    (``seed_dropout``): tpucv draws its mask from ``fold_in(PRNGKey(0),
+    step)``, so the mask is a function of the step, and a resumed run
+    draws the masks an unbroken one would. Kept values are scaled by
+    1 / (1 - p), as flax's ``nn.Dropout`` does; eval mode is the
+    identity."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.seed = 0
+
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        """The boolean keep mask of ``x``'s shape for the current seed."""
+        g = torch.Generator(device=x.device).manual_seed(self.seed)
+        return torch.rand(x.shape, generator=g, device=x.device) >= self.p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        return torch.where(self.keep_mask(x), x / (1.0 - self.p),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def seed_dropout(model: nn.Module, seed: int) -> None:
+    """Set every ``StepDropout`` of ``model`` to draw from ``seed``."""
+    for m in model.modules():
+        if isinstance(m, StepDropout):
+            m.seed = seed
+
+
 class Int8Hooks:
     """tpucv's int8 PTQ hooks on one conv (+ BN) pair, shared by
     ``ConvBnAct`` and ``HookedConv2d``: ``conv`` and ``bn`` name the pair

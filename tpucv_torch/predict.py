@@ -32,7 +32,10 @@ def require_int8(algo, model_name: str) -> None:
 
 
 def summary(result: dict) -> str:
-    """One image's detections in words: objects, masks, keypoints."""
+    """One image's result in words: objects, masks, keypoints, or a
+    segmentation map."""
+    if "class_map" in result:
+        return "segmentation map"
     n = len(result["boxes"])
     if not n:
         return "no detections"
@@ -49,8 +52,8 @@ def summary(result: dict) -> str:
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tpucv_torch.predict")
     parser.add_argument("--model", type=str, required=True,
-                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd "
-                             "or centernet")
+                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd, "
+                             "centernet or deeplabv3plus")
     parser.add_argument("--ckpt", type=str, default="",
                         help="a trainer checkpoint bundle, or a torch "
                              "state_dict with ultralytics key names")

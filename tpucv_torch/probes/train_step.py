@@ -2,16 +2,19 @@
 family's step (``make_train_step`` with the config's loss, bf16 autocast
 on the card) on a batch that already lies on the device.
 
-For each model it reports the step's time (CUDA events over back-to-back
-steps), its kernels' time (torch.profiler, device time summed), the
-host's time to launch one step from an idle device (the median over the
-steps; near the step's time when the host, not the device, sets the
-pace), and, a step, the host's waits for the device (runtime calls named
-``*Synchronize``), the copies from host memory to the device (``Memcpy
-HtoD``) and the kernel launches (``*LaunchKernel*``). A step that waits for the device cannot queue its
+The size is the config's own (640 for the YOLOs, 513 for DeepLab, whose
+batch holds label maps: ``bench.family_batch``'s). For each model it reports the step's time
+(CUDA events over back-to-back steps), its kernels' time (torch.profiler,
+device time summed), the host's time to launch one step from an idle
+device (the median over the steps; near the step's time when the host,
+not the device, sets the pace), and, a step, the host's waits for the
+device (runtime calls named ``*Synchronize``), the copies from host
+memory to the device (``Memcpy HtoD``) and the kernel launches
+(``*LaunchKernel*``). A step that waits for the device cannot queue its
 launches under the kernels before them.
 
     python -m tpucv_torch.probes.train_step --model yolo7        # the card
+    python -m tpucv_torch.probes.train_step --model deeplabv3plus
     python -m tpucv_torch.probes.train_step --device cpu --small
 """
 
@@ -24,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tpucv_torch.bench import family_batch
 from tpucv_torch.builder import export_from_registry
 from tpucv_torch.probes.common import card, parser, resolve_device, timed
 from tpucv_torch.train.state import TrainState, make_train_step
@@ -72,8 +76,16 @@ def _host_waits(step, state, batch, n: int, dev) -> dict:
         "kernel_ms": kernel_us / n / 1e3 if kernel_us > 0 else None}
 
 
-def measure(model_name: str, dev, B: int, S: int, n: int) -> dict:
+def measure(model_name: str, dev, B: int, S: Optional[int],
+            n: int) -> dict:
+    """One family's step at B x S² (S None: the config's own size, the
+    crop for DeepLab)."""
     cfg, algo_cls, _ = export_from_registry(model_name)
+    seg = model_name == "deeplabv3plus"
+    if seg:
+        S = S or cfg.arch.crop_size
+        cfg.arch.crop_size = cfg.arch.input_size = S
+    S = S or cfg.dataset.input_size
     cfg.dataset.input_size = S
     algo = algo_cls(cfg, device=dev)
     model = algo.init_variables(seed=0).train()
@@ -82,8 +94,9 @@ def measure(model_name: str, dev, B: int, S: int, n: int) -> dict:
     step = make_train_step(algo.build_loss(), device=dev,
                            ema_decay=cfg.optimizer.ema_decay,
                            mixed_precision=amp)
-    batch = synthetic_batch(B, S, cfg.dataset.max_num_boxes, dev,
-                            torch.bfloat16 if amp else torch.float32)
+    dtype = torch.bfloat16 if amp else torch.float32
+    batch = (family_batch(model_name, cfg, B, S, dev, dtype) if seg else
+             synthetic_batch(B, S, cfg.dataset.max_num_boxes, dev, dtype))
     step_ms = timed(lambda: step(state, batch), n, dev)
     host = []
     for _ in range(n):
@@ -108,7 +121,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
     print(f"train step on {card(dev)}", flush=True)
-    B, S, n = (2, 64, 2) if args.small else (args.batch, 640, 10)
+    B, S, n = (2, 64, 2) if args.small else (args.batch, None, 10)
     rows = []
     for name in args.model or ["yolo7"]:
         row = measure(name, dev, B, S, n)

@@ -25,9 +25,11 @@ biased conv, paired with the BatchNorm after it (SSD's VGG: tpucv's
 (SSD's conv6 / conv7: tpucv's ``conv_biased``, a ``NO_BN`` pair whose bias
 is the folded bias). CenterNet's convs are ``HookedConv2d``s too: every
 DLA / IDAUp conv paired with its BatchNorm, and the heads' 3x3 convs
-alone. The YOLO heads' final biased 1x1 convs, the DFL, SSD's extras and
-heads, and CenterNet's 1x1 heads and transposed convs stay float, as in
-tpucv.
+alone; so are DeepLabV3+'s (tpucv's ``BNConv``): every ResNet, ASPP
+(the dilated 3x3s and the image-pool branch's 1x1 on a 1x1 map) and
+decoder conv paired with its BatchNorm. The YOLO heads' final biased 1x1
+convs, the DFL, SSD's extras and heads, CenterNet's 1x1 heads and
+transposed convs and DeepLab's 1x1 classifier stay float, as in tpucv.
 
 Skips: convs whose per-group input width is below ``min_in_ch`` (the
 3-channel stem, depthwise convs), convs whose calibrated absmax is not

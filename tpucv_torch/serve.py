@@ -9,7 +9,8 @@ checkpoint bundle the port's trainer wrote (``*.ckpt``) or a bare torch
 through ``CheckPoint.load_pure``; without it the weights are random, drawn
 from seed 0. ``--int8 --calib <dir or glob>`` serves the int8 PTQ model
 (``tpucv_torch/quant.py``), calibrated once at startup on the first 32
-images ``--calib`` matches.
+images ``--calib`` matches. ``deeplabv3plus`` is refused: the server
+answers with detections, and tpucv has no segmentation server.
 
   POST /predict  (body = JPEG/PNG bytes, or raw RGB) -> detections JSON
   GET  /healthz  -> model/config
@@ -45,7 +46,8 @@ def build(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", type=str, required=True,
                         help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd "
-                             "or centernet")
+                             "or centernet (deeplabv3plus has no "
+                             "serving path)")
     parser.add_argument("--ckpt", type=str, default="",
                         help="a trainer checkpoint bundle, or a torch "
                              "state_dict with ultralytics key names")
@@ -73,6 +75,11 @@ def build(argv=None):
     args = parser.parse_args(argv)
 
     cfg, algo_cls, _ = export_from_registry(args.model)
+    if not hasattr(algo_cls, "_batched_detections"):
+        raise SystemExit(
+            f"{args.model} has no serving path: the server answers with "
+            f"detections (_batched_detections), which a segmentation "
+            f"model does not give")
     algo = algo_cls(cfg, device=args.device)
     if args.int8:
         require_int8(algo, args.model)

@@ -20,6 +20,7 @@ from torch import nn
 
 from tpucv_torch.algorithms.base import resolve_device
 from tpucv_torch.configs.base import OptimizerCfg
+from tpucv_torch.nn.blocks import seed_dropout
 from tpucv_torch.train.schedules import Schedule, warmup_multistep
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -131,6 +132,10 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
     Metrics (``loss`` and those of ``loss_fn``) are detached 0-d tensors on
     the device, so the step does not wait for the device.
 
+    Dropout (``nn.blocks.StepDropout``) draws its mask from the seed
+    ``state.step * G + i`` in micro-batch ``i``: a function of the step,
+    as tpucv's ``fold_in(PRNGKey(0), step)`` is.
+
     ``step(state, batch, lap)`` calls ``lap(stage)`` as each stage ends:
     ``forward`` (the batch's move and ``zero_grad`` included), ``loss``,
     ``backward`` (each once a micro-batch) and ``optimizer_ema``. The
@@ -139,7 +144,8 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
     dev = resolve_device(device)
     amp = dev.type == "cuda" if mixed_precision is None else mixed_precision
 
-    def compute(model, mb, lap):
+    def compute(model, mb, lap, seed):
+        seed_dropout(model, seed)
         raw = forward(model, mb["images"], amp)
         lap("forward")
         loss, metrics = loss_fn(raw, mb)
@@ -154,13 +160,14 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
         batch = _to(batch, dev)
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum <= 1:
-            loss, metrics = compute(model, batch, lap)
+            loss, metrics = compute(model, batch, lap, state.step)
         else:
             G = grad_accum
             micro = [dict(zip(batch, parts)) for parts in
                      zip(*(v.chunk(G) for v in batch.values()))]
-            losses, metricss = zip(*(compute(model, mb, lap)
-                                     for mb in micro))
+            losses, metricss = zip(*(
+                compute(model, mb, lap, state.step * G + i)
+                for i, mb in enumerate(micro)))
             losses = torch.stack(losses)
             if loss_batch_scaled:
                 loss = losses.sum()
