@@ -7,8 +7,10 @@ YOLOv8-pose through their trainers, predict and evaluate, int8
 post-training quantization of all three (parity, bench, serve, predict,
 evaluate), YOLOv7-l through its forward, decode, trainer, predict,
 serve, evaluate, in-training mAP and int8 path, SSD300 and
-CenterNet-DLA34 through the same paths, and DeepLabV3+-ResNet101 through
-its forward, trainer, predict, evaluate, int8 path and bench line.
+CenterNet-DLA34 through the same paths, DeepLabV3+-ResNet101 through
+its forward, trainer, predict, evaluate, int8 path and bench line, and
+ViT-S/16 and YOLOv8n-cls through their forwards, trainers, train steps,
+predict and top-1 / top-5 evaluate.
 
     python3 chip_smoke.py
 
@@ -300,11 +302,36 @@ script started); any failure exits non-zero:
             and class agreement; the predict CLI --int8 on 5 images.
 58. deeplab_bench  python -m tpucv_torch.bench --model deeplabv3plus's line
             (inference B=32, training B=16).
+59. cls_parity  vit_cls (ViT-S/16) and yolo8_cls (YOLOv8n-cls) as shipped
+            (224², nc 10), seed-0 weights: the f32 logits (B=2) card
+            against CPU within CLS_FWD_REL of their largest value, the
+            label-smoothed loss within 1e-5 relative, FLOPs an image
+            (torch.utils.flop_counter), the bf16 forward at B=64.
+60. vit_trainer / yolo8_cls_trainer  python -m tpucv_torch.train's main as
+            shipped (224², B=16, bf16, synthetic data: 4 batches an epoch)
+            for 8 steps, as seg_trainer: loss and acc, val_acc.
+61. cls_step  probes/train_step.py's measure for both at B=16: step and
+            kernel ms, the host's ms from an idle device, launches.
+62. cls_trained / cls_predict  each final checkpoint trained on for 48
+            steps at a constant Adam 1e-4 (the shipped warmup keeps the
+            rate near 1e-6, and an all-but-untrained model ranks near-ties);
+            the predict CLI on the serve images with it (bf16): top-k
+            labels; the same CLI in f32 on the card and the CPU:
+            probabilities within CLS_PROB_ATOL, the printed top-3 equal on
+            every image whose ranking cannot reorder; --int8 refused; ms an
+            image by stage (decode, resize, device, top-k).
+63. cls_evaluate  the evaluate CLI on a folder-per-class root written here
+            (80 224² JPEGs, 10 classes; B=64): top-1 / top-5, images/s of
+            the CLI and its loop; in f32 card against CPU, every
+            probability within CLS_PROB_ATOL and each image's hits equal
+            where its ranking is clear of ties; --int8 refused.
+64. cls_eval  each trainer's evaluate_loop: val_loss and val_acc.
 
 The line before the last holds {"kernels": [...]} (nms_keep, with its
-launches on every path that runs it, the int8, YOLOv7, SSD, CenterNet
-and DeepLab ones included (CenterNet's, the DIoU scan, and DeepLab's, no
-NMS, all 0), add_one, conv3x3); the last line is
+launches on every path that runs it, the int8, YOLOv7, SSD, CenterNet,
+DeepLab and classification ones included (CenterNet's, the DIoU scan,
+and DeepLab's and the classifiers', no NMS, all 0), add_one, conv3x3);
+the last line is
 {"ok": true, "device": {...}}. The whole output is also written to
 chiprun_out/chip_smoke.log. Without CUDA, or without the repository
 beside it, the script exits non-zero and prints no result.
@@ -346,6 +373,9 @@ DEEPLAB_QUANTIZED = 111    # every ResNet-101 / ASPP / decoder conv + BN but
                            # the 3-channel stem
 DEEPLAB_INT8_REL = 0.15    # tests/test_quant.py's bar for DeepLab's int8
                            # logits against the float ones
+CLS_FWD_REL = 1e-4         # ViT-S/16's and YOLOv8n-cls's f32 logits, card
+                           # against CPU, against their largest value
+CLS_PROB_ATOL = 1e-5       # f32 softmax probabilities, card against CPU
 DIOU_SCAN = frozenset({"centernet"})   # families whose NMS is the DIoU
                                        # scan at every K: never nms_keep
 ROOT = Path(__file__).resolve().parent
@@ -767,7 +797,19 @@ TRAINED = {
                                "crops, B=16, bf16, focal loss, host scale "
                                "jitter / crop / flip, synthetic data (32 "
                                "images: 2 batches an epoch)"),
+    "vit_cls": dict(arch=("dim", 384), size=224, M=0, terms=("loss", "acc"),
+                    val="val_acc", phase="vit_trainer", sharpen=None,
+                    desc="ViT-S/16 (dim 384, depth 12, heads 6), nc 10, "
+                         "224², B=16, bf16, label smoothing 0.1, host crop "
+                         "and flip, synthetic data (64 images)"),
+    "yolo8_cls": dict(arch=("model_type", "n"), size=224, M=0,
+                      terms=("loss", "acc"), val="val_acc",
+                      phase="yolo8_cls_trainer", sharpen=None,
+                      desc="YOLOv8n-cls (layers 0-8, Classify 1280), nc 10, "
+                           "224², B=16, bf16, label smoothing 0.1, host "
+                           "crop and flip, synthetic data (64 images)"),
 }
+CLASSIFIERS = ("vit_cls", "yolo8_cls")
 
 
 # ---------------------------------------------------------------- phases --
@@ -4047,6 +4089,458 @@ class Smoke:
               "nms_keep_launches": launches})
         return launches
 
+    # ------------------------------------------------ ViT and YOLOv8-cls
+    def cls_setup(self, name, mixed_precision=True):
+        """``vit_cls`` / ``yolo8_cls`` as shipped (ViT-S/16: patch 16, dim
+        384, depth 12, heads 6; YOLOv8n-cls; nc 10, 224², label smoothing
+        0.1, B=16, bf16): the config, checked, and its algorithm class;
+        ``mixed_precision`` False turns the config to f32."""
+        from tpucv_torch.builder import export_from_registry
+
+        cfg, algo_cls, _ = export_from_registry(name)
+        a = cfg.arch
+        arch = ((a.patch, a.dim, a.depth, a.heads) == (16, 384, 12, 6)
+                if name == "vit_cls" else a.model_type == "n")
+        check(arch and cfg.dataset.input_size == 224
+              and cfg.num_classes == 10 and cfg.loss.label_smoothing == 0.1
+              and cfg.train.batch_size == 16 and cfg.train.mixed_precision,
+              f"{name}'s config is not as shipped")
+        cfg.train.mixed_precision = mixed_precision
+        return cfg, algo_cls
+
+    def phase_cls_parity(self, B_time=64, reps=10):
+        """Each family's seed-0 model at 224², f32 (TF32 off), B=2: the
+        logits card against CPU within CLS_FWD_REL of their largest
+        |value|, the label-smoothed loss (labels from a seed) within 1e-5
+        relative and ``acc`` equal; its FLOPs an image
+        (``torch.utils.flop_counter``); then the bf16 forward (autocast,
+        channels_last) at B=64, timed with CUDA events, and its longest
+        kernels (profiler). nms_keep's count 0."""
+        import copy
+
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.probes.common import H100_BF16_FLOPS, timed
+
+        torch = self.torch
+        cpu = torch.device("cpu")
+        nms_keep.launches = 0
+        row = {}
+        for name in CLASSIFIERS:
+            cfg, algo_cls = self.cls_setup(name)
+            algo = algo_cls(cfg, device=self.dev)
+            model = algo.init_variables(seed=0)
+            rng = np.random.default_rng(3)
+            x = torch.from_numpy(rng.random((2, 224, 224, 3), np.float32))
+            labels = torch.from_numpy(
+                rng.integers(0, algo.nc, 2).astype(np.int32))
+            cpu_model = copy.deepcopy(model).to(
+                cpu, memory_format=torch.contiguous_format)
+            with torch.inference_mode():
+                ref = cpu_model(x)
+                got = model(x.to(self.dev)).cpu()
+            del cpu_model
+            check(bool(torch.isfinite(got).all()) and got.shape == (2, 10),
+                  f"{name}: logits {got.shape}, finite "
+                  f"{bool(torch.isfinite(got).all())}")
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            check(rel <= CLS_FWD_REL, f"{name}: the f32 forward on the card "
+                                      f"differs from the CPU by {rel}")
+            loss_fn = algo.build_loss()
+            lc, mc = loss_fn(ref, {"labels": labels})
+            lg, mg = loss_fn(ref.to(self.dev), {"labels": labels.to(self.dev)})
+            lc, lg = float(lc), float(lg)
+            check(abs(lg - lc) <= 1e-5 * abs(lc)
+                  and float(mg["acc"]) == float(mc["acc"]),
+                  f"{name}: loss card {lg} against CPU {lc}")
+            with FlopCounterMode(display=False) as fc, \
+                    torch.inference_mode():
+                model(x[:1].to(self.dev))
+            flops = fc.get_total_flops()
+            xb = torch.rand((B_time, 224, 224, 3), device=self.dev)
+            with torch.inference_mode(), \
+                    torch.autocast("cuda", dtype=torch.bfloat16):
+                fwd_ms = timed(lambda: model(xb), reps, self.dev)
+                top = self._kernels_by_time(lambda: model(xb), 3)
+            row[name] = {
+                "forward_max_rel_err": rel,
+                "max_abs_logit": float(ref.abs().max()),
+                "loss_cpu": lc, "loss_card": lg,
+                "gflops_per_image": flops / 1e9,
+                f"bf16_forward_ms_B{B_time}": fwd_ms,
+                "bf16_forward_img_per_s": B_time / fwd_ms * 1e3,
+                "bf16_forward_tflops": flops * B_time / fwd_ms / 1e9,
+                "share_of_bf16_peak": flops * B_time / fwd_ms * 1e3
+                / H100_BF16_FLOPS,
+                "bf16_forward_top_kernels_ms": top}
+        launches = nms_keep.launches
+        check(launches == 0, f"cls_parity: nms_keep launched {launches}")
+        emit({"phase": "cls_parity", "size": 224, "batch": 2, **row,
+              "nms_keep_launches": launches, "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_cls_step(self, n=3):
+        """``probes.train_step.measure`` for both families at the shipped
+        B=16, 224², bf16, on a device-resident batch: step and kernel ms,
+        the host's ms to issue one step from an idle device, launches;
+        device-bound when the kernels fill 90% of the step."""
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.probes import train_step
+
+        nms_keep.launches = 0
+        row = {}
+        for name in CLASSIFIERS:
+            r = train_step.measure(name, self.dev, 16, None, n)
+            busy = (r["kernel_ms"] or 0.0) / r["step_ms"]
+            row[name] = {**r, "busy_share": busy,
+                         "bound": "device" if busy >= 0.9 else "host",
+                         "host_share_from_idle": r["host_ms_from_idle"]
+                         / r["step_ms"]}
+        launches = nms_keep.launches
+        check(launches == 0, f"cls_step: nms_keep launched {launches}")
+        emit({"phase": "cls_step", **row, "nms_keep_launches": launches,
+              "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def _kernels_by_time(self, fn, n, top=8):
+        """The device's time a call by kernel name (torch.profiler over
+        ``n`` calls), the ``top`` longest, names cut to 90 characters, and
+        the sum of all under "all"; {} when no device time is recorded."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            self.sync()
+        rows = sorted(((e.key[:90], e.self_device_time_total / n / 1e3)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+        if not rows:
+            return {}
+        return {**dict(rows[:top]), "all": sum(ms for _, ms in rows)}
+
+    def _cls_cli(self, cli, name, mixed_precision, argv):
+        """The CLI's main with ``name``'s config as shipped, or in f32."""
+        was = cli.export_from_registry
+
+        def registry(model_name):
+            cfg, algo_cls = self.cls_setup(model_name, mixed_precision)
+            return cfg, algo_cls, None
+
+        cli.export_from_registry = registry
+        try:
+            return cli.main(["--model", name, *argv])
+        finally:
+            cli.export_from_registry = was
+
+    def _cls_f32_runs(self, cli, name, argv):
+        """The CLI's main in f32 on the card and on the CPU, every
+        probability row its infer fn returns recorded: (results by device,
+        card rows, CPU rows, their largest difference)."""
+        from tpucv_torch.algorithms import classification as cls_mod
+
+        real = cls_mod.VitClassification.make_infer_fn
+        sink, out = [], {}
+
+        def recording(algo, *a, **kw):
+            infer = real(algo, *a, **kw)
+
+            def run(model, u8):
+                p = infer(model, u8)
+                sink[-1].append(p.cpu().numpy())
+                return p
+            return run
+
+        cls_mod.VitClassification.make_infer_fn = recording
+        try:
+            for dev in ("cuda", "cpu"):
+                sink.append([])
+                out[dev] = self._cls_cli(cli, name, False,
+                                         [*argv, "--device", dev])
+        finally:
+            cls_mod.VitClassification.make_infer_fn = real
+        pg, pc = (np.concatenate(r) for r in sink)
+        err = float(np.abs(pg - pc).max())
+        check(err <= CLS_PROB_ATOL, f"{name}: f32 probabilities card against "
+                                    f"CPU {err}")
+        return out, pg, pc, err
+
+    @staticmethod
+    def _clear_rows(pc, pg, ranks):
+        """Rows whose ranks 0..``ranks`` must order alike in both engines:
+        with every log-probability within ``d`` of the other engine's
+        (``d`` the largest difference), two classes whose CPU
+        log-probabilities are more than 2 ``d`` apart keep their order.
+        Returns (the rows, ``d``)."""
+        lc, lg = (np.log(np.maximum(p, np.float32(1e-38))) for p in (pc, pg))
+        d = float(np.abs(lc - lg).max())
+        top = -np.sort(-lc, -1)[:, :ranks + 1]
+        return (-np.diff(top, axis=-1)).min(-1) > 2 * d, d
+
+    def cls_trained(self, runs, steps=48, lr=1e-4):
+        """Each run's final weights trained on for ``steps`` steps (12
+        epochs) at a constant Adam ``lr`` on its trainer's synthetic set,
+        as shipped otherwise (bf16, B=16): the shipped warmup holds the
+        rate near 1e-6 for 1,000 steps, so after the trainer's 8 the output
+        hardly depends on the image and predict and evaluate would rank
+        near-ties. Saved as ``trained.ckpt`` beside the run; the loss and
+        acc of the first and last epochs."""
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.train.state import TrainState, make_train_step
+
+        ckpts, row = {}, {}
+        for name in CLASSIFIERS:
+            trainer = runs[name]["trainer"]
+            cfg, algo_cls = self.cls_setup(name)
+            algo = algo_cls(cfg, device=self.dev)
+            model = algo.init_variables()
+            model.load_state_dict(CheckPoint.load_pure(
+                runs[name]["final_path"]))
+            state = TrainState.create(model, lr)
+            step = make_train_step(algo.build_loss(), device=self.dev,
+                                   mixed_precision=True)
+            logged, epoch = [], 0
+            t0 = time.perf_counter()
+            while state.step < steps:
+                trainer.train_loader.set_epoch(100 + epoch)
+                epoch += 1
+                for batch in trainer.train_loader:
+                    state, m = step(state, trainer.device_batch(batch, True))
+                    logged.append(trainer._read_metrics(m))
+                    if state.step >= steps:
+                        break
+            self.sync()
+            n = len(trainer.train_loader)
+            first, last = ({k: float(np.mean([r[k] for r in part]))
+                            for k in ("loss", "acc")}
+                           for part in (logged[:n], logged[-n:]))
+            check(all(np.isfinite(v) for r in logged for v in r.values()),
+                  f"{name}: non-finite loss in the extra steps")
+            ckpts[name] = CheckPoint.save_pure(
+                state.model, str(Path(runs[name]["final_path"]).parent /
+                                 "trained.ckpt"))
+            row[name] = {"steps": steps, "lr": lr, "epochs": epoch,
+                         "seconds": time.perf_counter() - t0,
+                         "first_epoch": first, "last_epoch": last}
+        emit({"phase": "cls_trained", **row})
+        return ckpts
+
+    def phase_cls_predict(self, ckpts, imgs, reps=3):
+        """``python -m tpucv_torch.predict``'s main on the serve images (4
+        JPEGs, a PNG) with each ``cls_trained`` checkpoint, as shipped (bf16;
+        nms_keep's count zeroed just before, read just after: 0); the same
+        CLI in f32 on the card and on the CPU: every probability within
+        CLS_PROB_ATOL, the printed top-3 labels equal on every image whose
+        ranks 0-3 cannot reorder (``_clear_rows``; at least 3 of 5); the
+        shipped top-1 against the CPU's f32; ``--int8`` refused. Then ms
+        an image by stage (median of ``reps``): decode, the host resize to
+        224², the device (H2D, forward, softmax, D2H) and the top-k."""
+        import cv2
+
+        from tpucv_torch import predict as cli
+        from tpucv_torch.algorithms import classification as cls_mod
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        out = ROOT / "saves" / "chip_smoke" / "cls" / "predict"
+        out.mkdir(parents=True, exist_ok=True)
+        srcs = []
+        for k, img in enumerate(imgs[:5]):
+            srcs.append(str(out / f"img{k}{'.png' if k == 4 else '.jpg'}"))
+            check(cv2.imwrite(srcs[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
+                  f"could not write {srcs[-1]}")
+        row, total_launches = {}, 0
+        for name in CLASSIFIERS:
+            ckpt = ckpts[name]
+            nms_keep.launches = 0                # just before the path
+            t0 = time.perf_counter()
+            got = self._cls_cli(cli, name, True,
+                                ["--ckpt", ckpt, "--src", *srcs])
+            wall = time.perf_counter() - t0
+            launches = nms_keep.launches         # just after
+            total_launches += launches
+            check(launches == 0 and len(got) == 5
+                  and all(len(r["labels"]) == 5 and r["boxes"].shape ==
+                          (0, 4) for r in got),
+                  f"{name} predict: {launches} nms_keep launches, "
+                  f"{[r['labels'] for r in got]}")
+            f32, pg, pc, err = self._cls_f32_runs(
+                cli, name, ["--ckpt", ckpt, "--src", *srcs])
+            clear, d = self._clear_rows(pc, pg, 3)
+            check(clear.sum() >= 3, f"{name}: {int(clear.sum())} of 5 "
+                                    f"images clear of near-ties")
+            for j in np.flatnonzero(clear):
+                g, c = f32["cuda"][j]["labels"][:3], f32["cpu"][j]["labels"][:3]
+                check(g == c, f"{name}: printed labels card {g} CPU {c}")
+            top1_agree = float(np.mean([a["labels"][0] == c["labels"][0]
+                                        for a, c in zip(got, f32["cpu"])]))
+            try:
+                self._cls_cli(cli, name, True, ["--int8", "--src", srcs[0]])
+                check(False, f"{name}: predict --int8 was not refused")
+            except SystemExit as e:
+                check("not supported" in str(e), f"{name}: {e}")
+
+            cfg, algo_cls = self.cls_setup(name)
+            algo = algo_cls(cfg, device=self.dev)
+            model = algo.init_variables()
+            model.load_state_dict(CheckPoint.load_pure(ckpt))
+            rec = StageRecorder(self.sync)
+            rec.wrap(cls_mod, "read_image", "decode")
+            rec.wrap(cls_mod.VitClassification, "_resized", "resize")
+            infer = rec.wrapped(algo.make_predict_infer_fn(), "device")
+            laps = {k: [] for k in ("decode", "resize", "device", "topk")}
+            try:
+                for _ in range(reps):
+                    for src in srcs:
+                        rec.events.clear()
+                        t0 = time.perf_counter()
+                        algo.predict(model, src, infer_fn=infer)
+                        total = (time.perf_counter() - t0) * 1e3
+                        ev = {k: (z - a) * 1e3 for k, a, z in rec.events}
+                        for k in ("decode", "resize", "device"):
+                            laps[k].append(ev[k])
+                        laps["topk"].append(total - sum(ev.values()))
+            finally:
+                rec.restore()
+            med = {k: float(np.median(v)) for k, v in laps.items()}
+            row[name] = {"cli_wall_s": wall,
+                         "labels": [r["labels"][:3] for r in got],
+                         "f32_prob_max_abs_err": err,
+                         "f32_logprob_max_abs_err": d,
+                         "f32_images_compared": int(clear.sum()),
+                         "top1_bf16_agrees_cpu_f32": top1_agree,
+                         "ms_per_image": med,
+                         "ms_per_image_total": sum(med.values())}
+        emit({"phase": "cls_predict", "images": len(srcs), **row,
+              "int8_refused": True, "nms_keep_launches": total_launches,
+              "nvidia_smi": nvidia_smi()})
+        return total_launches
+
+    def phase_cls_evaluate(self, ckpts, batch=64, n_img=80):
+        """``python -m tpucv_torch.evaluate``'s main on a folder-per-class
+        root written here (``val/c{k}/``: 80 224² JPEGs of
+        ``SyntheticClsIndex``, 8 a class, nc 10) with each ``cls_trained``
+        checkpoint, B=64 (a full batch and a zero-filled one): top-1 / top-5
+        as shipped (bf16), images/s of the CLI and of its loop alone
+        (nms_keep's count 0); the same CLI in f32 on the card and on the
+        CPU, every probability recorded: within CLS_PROB_ATOL, each image's
+        top-1 / top-5 hit equal wherever its ranks 0-5 cannot reorder
+        (``_clear_rows``; at least half the images), and the two CLIs'
+        top-1 / top-5 equal when every image is; ``--int8`` refused."""
+        import os
+
+        import cv2
+
+        from tpucv_torch import evaluate as cli
+        from tpucv_torch.algorithms import classification as cls_mod
+        from tpucv_torch.data.classification_dataset import SyntheticClsIndex
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        base = ROOT / "saves" / "chip_smoke" / "cls" / "evaluate"
+        src = SyntheticClsIndex(n_img, 224, 10, seed=3)
+        for i in range(n_img):
+            img, k = src[i]
+            d = base / "root" / "val" / f"c{k}"
+            d.mkdir(parents=True, exist_ok=True)
+            check(cv2.imwrite(str(d / f"{i:03d}.jpg"),
+                              cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
+                  f"could not write image {i}")
+        env_was, cwd = os.environ.get("TPUCV_CLS_ROOT"), os.getcwd()
+        os.environ["TPUCV_CLS_ROOT"] = str(base / "root")
+        os.chdir(base)
+        row, total_launches = {}, 0
+        try:
+            for name in CLASSIFIERS:
+                argv = ["--ckpt", ckpts[name], "--batch-size", str(batch)]
+                rec = StageRecorder(self.sync)
+                rec.wrap(cls_mod.VitClassification, "evaluate", "loop")
+                try:
+                    nms_keep.launches = 0        # just before the path
+                    t0 = time.perf_counter()
+                    res = self._cls_cli(cli, name, True, argv)
+                    self.sync()
+                    wall = time.perf_counter() - t0
+                    launches = nms_keep.launches     # just after
+                finally:
+                    rec.restore()
+                total_launches += launches
+                loop_s = rec.events[0][2] - rec.events[0][1]
+                f32, pg, pc, err = self._cls_f32_runs(cli, name, argv)
+                pg, pc = pg[:n_img], pc[:n_img]
+                labels = np.array([src[i][1] for i in range(n_img)])
+                order_g = np.argsort(-pg, -1)
+                order_c = np.argsort(-pc, -1)
+                clear, d = self._clear_rows(pc, pg, 5)
+                check(clear.mean() >= 0.5, f"{name}: {int(clear.sum())} of "
+                                           f"{n_img} images clear of ties")
+                for j in np.flatnonzero(clear):
+                    check(order_g[j, 0] == order_c[j, 0] and
+                          (labels[j] in order_g[j, :5]) ==
+                          (labels[j] in order_c[j, :5]),
+                          f"{name}: image {j}'s top-1 / top-5 differ, card "
+                          f"against CPU")
+                if clear.all():
+                    check(f32["cuda"] == f32["cpu"],
+                          f"{name}: top-1 / top-5 card {f32['cuda']} CPU "
+                          f"{f32['cpu']}")
+                try:
+                    self._cls_cli(cli, name, True, [*argv, "--int8"])
+                    check(False, f"{name}: evaluate --int8 was not refused")
+                except SystemExit as e:
+                    check("not supported" in str(e), f"{name}: {e}")
+                check(launches == 0 and all(
+                    0 <= r[k] <= 1 for r in (res, *f32.values())
+                    for k in ("top1", "top5")),
+                      f"{name} evaluate: {res}, {launches} launches")
+                row[name] = {"top1": res["top1"], "top5": res["top5"],
+                             "f32_card": f32["cuda"], "f32_cpu": f32["cpu"],
+                             "f32_prob_max_abs_err": err,
+                             "f32_logprob_max_abs_err": d,
+                             "images_clear_of_ties": int(clear.sum()),
+                             "cli_wall_s": wall,
+                             "img_per_s_cli": n_img / wall,
+                             "img_per_s_loop": n_img / loop_s}
+        finally:
+            os.chdir(cwd)
+            if env_was is None:
+                os.environ.pop("TPUCV_CLS_ROOT")
+            else:
+                os.environ["TPUCV_CLS_ROOT"] = env_was
+        emit({"phase": "cls_evaluate", "images": n_img, "batch": batch,
+              **row, "int8_refused": True,
+              "nms_keep_launches": total_launches,
+              "nvidia_smi": nvidia_smi()})
+        return total_launches
+
+    def phase_cls_eval(self, runs, reps=2):
+        """Each trainer's ``evaluate_loop`` on its run's state (16 synthetic
+        val images, B=16): val_loss and val_acc finite, ms a call."""
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        nms_keep.launches = 0
+        row = {}
+        for name in CLASSIFIERS:
+            trainer = runs[name]["trainer"]
+            ms = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                val = trainer.evaluate_loop(trainer.state)
+                self.sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            check(sorted(val) == ["val_acc", "val_loss"]
+                  and all(np.isfinite(v) for v in val.values()),
+                  f"{name} evaluate_loop: {val}")
+            row[name] = {**val, "ms": float(np.median(ms)),
+                         "images": len(trainer.val_loader.ds)}
+        launches = nms_keep.launches
+        check(launches == 0, f"cls_eval: nms_keep launched {launches}")
+        emit({"phase": "cls_eval", **row, "nms_keep_launches": launches})
+        return launches
+
     def phase_serve_vs_direct(self, algo, model, imgs, results, phase):
         """The served images again through ``_batched_detections`` (B=8,
         conf 0.25, as the server calls it), outside the server: each image's
@@ -4458,6 +4952,22 @@ def main() -> int:
     dl["deeplab_eval (evaluate_loop)"] = smoke.phase_deeplab_eval(dl_run)
     dl["deeplab_int8"] = smoke.phase_deeplab_int8(dl_algo, dl_ckpt, imgs)
     dl["deeplab_bench"] = smoke.phase_deeplab_bench()
+
+    cls = {"cls_parity (B=2 and 64)": smoke.phase_cls_parity()}
+    cls_runs = {}
+    for name in CLASSIFIERS:
+        nms_keep.launches = 0                # just before the path
+        cls_runs[name] = smoke.phase_family_trainer(name)
+        cls[TRAINED[name]["phase"]] = nms_keep.launches
+        check(cls[TRAINED[name]["phase"]] == 0,
+              f"the {name} trainer launched nms_keep")
+    cls["cls_step (B=16)"] = smoke.phase_cls_step()
+    nms_keep.launches = 0
+    cls_ckpts = smoke.cls_trained(cls_runs)
+    cls["cls_trained"] = nms_keep.launches
+    cls["cls_predict"] = smoke.phase_cls_predict(cls_ckpts, imgs)
+    cls["cls_evaluate (B=64)"] = smoke.phase_cls_evaluate(cls_ckpts)
+    cls["cls_eval (evaluate_loop)"] = smoke.phase_cls_eval(cls_runs)
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
     print(nvidia_smi(), flush=True)
@@ -4514,7 +5024,8 @@ def main() -> int:
                                  cn_map_launches,
                              "centernet_int8_predict (DIoU: the scan)":
                                  cn_int8_launches,
-                             **{f"{k}: no NMS": v for k, v in dl.items()}},
+                             **{f"{k}: no NMS": v for k, v in dl.items()},
+                             **{f"{k}: no NMS": v for k, v in cls.items()}},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

@@ -1034,3 +1034,62 @@ def test_deeplab_int8_routes_bit_equal():
         assert torch.equal(got, want), name
         dilated += c.dilation[0] > 1
     assert dilated == 5
+
+
+# ViT-S/16 and YOLOv8n-cls (no kernel: tpucv's ViT and YOLOv8-cls reach
+# no pallas_call); the forward and one train step against the CPU.
+
+def _cls_algo(name, dev, size=224):
+    from tpucv_torch.builder import export_from_registry
+
+    cfg, algo_cls, _ = export_from_registry(name)
+    cfg.dataset.input_size = size
+    cfg.train.mixed_precision = False
+    return algo_cls(cfg, device=dev)
+
+
+@pytest.mark.parametrize("name", ["vit_cls", "yolo8_cls"])
+def test_cls_forward_on_the_card_equals_the_cpu(name, no_tf32):
+    """The shipped width at 224², f32 (TF32 off), B=2: the logits within
+    1e-4 of their largest |value|."""
+    model = _cls_algo(name, "cpu").init_variables(seed=0)
+    x = torch.from_numpy(np.random.default_rng(3).random(
+        (2, 224, 224, 3), np.float32))
+    with torch.inference_mode():
+        cpu = model(x)
+        card = copy.deepcopy(model).cuda().to(
+            memory_format=torch.channels_last)(x.cuda()).cpu()
+    assert card.shape == cpu.shape == (2, 10)
+    assert float((card - cpu).abs().max() / cpu.abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("name", ["vit_cls", "yolo8_cls"])
+def test_cls_train_step_on_the_card_equals_the_cpu(name, no_tf32):
+    """One f32 step of the family's train step (label-smoothed CE, Adam
+    1e-3) at 64², B=4, card against CPU: the loss within 1e-4 relative,
+    the parameters after the step within 2.1e-3 (an Adam step moves each
+    by at most about lr)."""
+    from tpucv_torch.train.state import TrainState, make_train_step
+
+    algo = _cls_algo(name, "cpu", size=64)
+    model = algo.init_variables(seed=0)
+    rng = np.random.default_rng(5)
+    batch = {"images": torch.from_numpy(rng.random((4, 64, 64, 3),
+                                                   np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 10, 4).astype(
+                 np.int32))}
+    out = []
+    for d in (torch.device("cpu"), torch.device("cuda")):
+        m = copy.deepcopy(model).to(d, memory_format=torch.channels_last)
+        st = TrainState.create(m, 1e-3)
+        step = make_train_step(algo.build_loss(), device=d,
+                               mixed_precision=False)
+        st, metrics = step(st, {k: v.to(d) for k, v in batch.items()})
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {k: v.detach().cpu() for k, v in
+                     st.model.state_dict().items()}))
+    (cm, csd), (gm, gsd) = out
+    assert gm["loss"] == pytest.approx(cm["loss"], rel=1e-4)
+    for k in csd:
+        if csd[k].is_floating_point():
+            assert float((gsd[k] - csd[k]).abs().max()) <= 2.1e-3, k

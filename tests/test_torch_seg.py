@@ -123,8 +123,13 @@ def test_parameters_and_keys(weights):
 
 
 def test_classify_head_refused_by_name():
-    with pytest.raises(ValueError, match="classify"):
-        Yolo8("n", head="classify")
+    """A head the port does not have is refused by name; "classify"
+    (yolov8-cls) builds layers 0-8 and the classify head as layer 9."""
+    with pytest.raises(ValueError, match="'obb'"):
+        Yolo8("n", head="obb")
+    model = Yolo8("n", head="classify")
+    assert len(model.model) == 10
+    assert type(model.model[9]).__name__ == "ClassifyHead"
 
 
 def _raw(S, seed, B=2, nc=80, nm=32):

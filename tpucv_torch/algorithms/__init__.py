@@ -8,3 +8,5 @@ from tpucv_torch.algorithms.yolov7 import YOLOv7  # noqa: F401
 from tpucv_torch.algorithms.ssd import Ssd  # noqa: F401
 from tpucv_torch.algorithms.centernet import CenterNetA  # noqa: F401
 from tpucv_torch.algorithms.segmentation_2d import DeeplabV3PlusA  # noqa: F401,E501
+from tpucv_torch.algorithms.classification import VitClassification  # noqa: F401,E501
+from tpucv_torch.algorithms.yolov8_cls import YOLOv8Cls  # noqa: F401

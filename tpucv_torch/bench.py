@@ -394,8 +394,9 @@ def family_batch(name: str, cfg, B: int, S: int, dev: torch.device,
                  images_dtype: torch.dtype, seed: int = 0):
     """``bench.py:bench_family``'s train batch, made on ``dev`` from a
     ``torch.Generator``: images uniform in [0, 1); DeepLab's labels uniform
-    over its classes, the detectors' ``FAMILY_GT_ROWS`` GT rows of boxes
-    uniform in [0, 0.45 S) (some inverted, as there), every row real."""
+    over its classes, a classifier's one label an image, the detectors'
+    ``FAMILY_GT_ROWS`` GT rows of boxes uniform in [0, 0.45 S) (some
+    inverted, as there), every row real."""
     g = torch.Generator(device=dev).manual_seed(seed)
     images = torch.rand((B, S, S, 3), generator=g, device=dev).to(
         images_dtype)
@@ -403,6 +404,10 @@ def family_batch(name: str, cfg, B: int, S: int, dev: torch.device,
     if name == "deeplabv3plus":
         return {"images": images,
                 "labels": torch.randint(0, nc, (B, S, S), generator=g,
+                                        device=dev, dtype=torch.int32)}
+    if name in ("vit_cls", "yolo8_cls"):
+        return {"images": images,
+                "labels": torch.randint(0, nc, (B,), generator=g,
                                         device=dev, dtype=torch.int32)}
     M = FAMILY_GT_ROWS
     return {"images": images,

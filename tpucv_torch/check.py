@@ -1,8 +1,8 @@
-"""Model-name whitelist (counterpart of ``tpucv/check.py``). It names the
-families the port has so far; the others join as their slices land."""
+"""Model-name whitelist (counterpart of ``tpucv/check.py``): tpucv's nine
+registered families."""
 
-MODELS = ["yolo8_det", "yolo8_seg", "yolo8_pose", "yolo7", "ssd",
-          "centernet", "deeplabv3plus"]
+MODELS = ["yolo8_det", "yolo8_seg", "yolo8_pose", "yolo8_cls", "yolo7",
+          "ssd", "centernet", "deeplabv3plus", "vit_cls"]
 
 
 def check_model_name(name: str) -> None:

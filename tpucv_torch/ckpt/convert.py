@@ -60,6 +60,15 @@ as ``import_deeplab`` reads them: ``backbone/stem`` -> ``backbone.conv1``
 and the biased ``classifier`` -> ``classifier.classifier.3``. Its quant
 buffers, as CenterNet's, live on the ``HookedConv2d``.
 
+tpucv's ``ViT`` tree keeps its own names in the port (``patchify``,
+``cls``, ``pos_embed``, ``block{i}/{ln1,attn,ln2,mlp}``, ``ln``, ``head``);
+``cls`` and ``pos_embed`` are bare leaves, carried as they are. flax's
+``Dense`` kernels are (in, out) and become ``nn.Linear``'s (out, in); the
+attention's ``DenseGeneral`` kernels go flat: ``query`` / ``key`` /
+``value`` (dim, H, hd) -> (H·hd, dim), ``out`` (H, hd, dim) -> (dim,
+H·hd), their (H, hd) biases -> (H·hd,). YOLOv8-cls's ``classify`` head
+(``conv``, ``linear``) is ``model.9``.
+
 The family is told by the tree's top-level names.
 """
 
@@ -78,7 +87,7 @@ YOLOV8_LAYER_MAP = {
     21: "h21", 22: "detect",
 }
 _TOP = {v: f"model.{k}" for k, v in YOLOV8_LAYER_MAP.items()}
-_TOP.update(segment="model.22", pose="model.22")
+_TOP.update(segment="model.22", pose="model.22", classify="model.9")
 _LEAF = {("params", "kernel"): "weight", ("params", "scale"): "weight",
          ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
          ("batch_stats", "var"): "running_var"}
@@ -218,19 +227,33 @@ def _deeplab_name(path) -> str:
     return f"{mod}.{conv if child == 'conv' else bn}.{leaf}"
 
 
+def _dense(mod, leaf: str, v: np.ndarray) -> np.ndarray:
+    """A flax ``Dense`` / ``DenseGeneral`` leaf in ``nn.Linear``'s layout."""
+    if leaf == "kernel" and v.ndim == 3:
+        if mod[-1] == "out":                       # (H, hd, dim) -> (dim, H·hd)
+            return v.reshape(-1, v.shape[-1]).T
+        return v.reshape(v.shape[0], -1).T         # (dim, H, hd) -> (H·hd, dim)
+    if leaf == "kernel" and v.ndim == 2:           # (in, out) -> (out, in)
+        return v.T
+    if leaf == "bias" and v.ndim == 2:             # (H, hd) -> (H·hd,)
+        return v.reshape(-1)
+    return v
+
+
 def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """tpucv ``{"params", "batch_stats"[, "quant"]}`` nested dicts of
     arrays -> the port's ``state_dict`` (f32 tensors; the quant buffers
     int8 and f32): ``Yolo8`` with any of its heads (ultralytics key names),
     ``Yolo7``, ``SSD``, ``CenterNet`` or ``DeeplabV3Plus`` (the
-    reference's). Loads with ``strict=True``."""
+    reference's), or ``ViT`` (tpucv's). Loads with ``strict=True``."""
     top = variables.get("params", {})
     centernet = "dla" in top
     deeplab = "aspp" in top
     name_of = (_yolo7_name if "stem0" in top else
                _ssd_name if "vgg0_conv" in top else
                _centernet_name if centernet else
-               _deeplab_name if deeplab else _torch_name)
+               _deeplab_name if deeplab else
+               ".".join if "pos_embed" in top else _torch_name)
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, v in _walk(variables.get(coll, {})):
@@ -239,9 +262,14 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
                 sd["model.22.dfl.conv.weight"] = torch.from_numpy(
                     v.reshape(1, -1, 1, 1))
                 continue
+            if path in (("cls",), ("pos_embed",)):             # bare leaves
+                sd[path[0]] = torch.from_numpy(v)
+                continue
             *mod, leaf = path
             if v.ndim == 4:                                   # HWIO -> OIHW
                 v = np.transpose(v, (3, 2, 0, 1))
+            else:
+                v = _dense(mod, leaf, v)
             name = name_of((*mod, _LEAF[(coll, leaf)]))
             sd[name] = torch.from_numpy(np.ascontiguousarray(v))
             if leaf == "mean":

@@ -1,7 +1,7 @@
 """Per-model configs (counterpart of ``tpucv/configs/model_cfgs.py``), with
-tpucv's hyperparameter values. Only the families the port has so far are
-here: YOLOv8 detect, seg and pose, YOLOv7, SSD, CenterNet and
-DeepLabV3+."""
+tpucv's hyperparameter values: all nine registered families, YOLOv8
+detect, seg, pose and cls, YOLOv7, SSD, CenterNet, DeepLabV3+ and
+ViT."""
 
 from __future__ import annotations
 
@@ -333,3 +333,66 @@ class DeeplabV3PlusConfig(BaseConfig):
     @property
     def num_classes(self) -> int:
         return 21                     # VOC's 20 classes and the background
+
+
+# --------------------------------------------------------------- ViT (cls)
+@dataclass
+class VitClsArch:
+    patch: int = 16
+    dim: int = 384
+    depth: int = 12
+    heads: int = 6
+
+
+@dataclass
+class VitClsLoss:
+    label_smoothing: float = 0.1
+
+
+@config_registry("vit_cls")
+@dataclass
+class VitClsConfig(BaseConfig):
+    """ViT-S/16 image classification at 224². Dataset: a folder-per-class
+    tree at ``TPUCV_CLS_ROOT`` (``root/{train,val}/<class>/*.jpg``), the
+    synthetic fallback otherwise."""
+
+    arch: VitClsArch = field(default_factory=VitClsArch)
+    loss: VitClsLoss = field(default_factory=VitClsLoss)
+    dataset: DatasetCfg = field(default_factory=lambda: DatasetCfg(
+        name="folder", input_size=224, max_num_boxes=0))
+    n_classes: int = 10          # overridden by the folder tree when present
+
+    @property
+    def model_name(self) -> str:
+        return "vit_cls"
+
+    @property
+    def num_classes(self) -> int:
+        return self.n_classes
+
+
+# ------------------------------------------------------------ YOLOv8-cls
+@dataclass
+class Yolo8ClsArch:
+    model_type: str = "n"
+
+
+@config_registry("yolo8_cls")
+@dataclass
+class Yolo8ClsConfig(BaseConfig):
+    """YOLOv8-cls: the CSPDarknet backbone (layers 0-8) and the Classify
+    head at 224²; the same dataset contract as ``vit_cls``."""
+
+    arch: Yolo8ClsArch = field(default_factory=Yolo8ClsArch)
+    loss: VitClsLoss = field(default_factory=VitClsLoss)
+    dataset: DatasetCfg = field(default_factory=lambda: DatasetCfg(
+        name="folder", input_size=224, max_num_boxes=0))
+    n_classes: int = 10          # overridden by the folder tree when present
+
+    @property
+    def model_name(self) -> str:
+        return "yolo8_cls"
+
+    @property
+    def num_classes(self) -> int:
+        return self.n_classes

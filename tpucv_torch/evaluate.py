@@ -7,11 +7,13 @@ flags plus ``--device``:
 Runs on CUDA unless ``--device cpu`` is given; on a machine without CUDA
 it stops with an error rather than moving to the CPU. The dataset is read
 through the algorithm's ``build_eval_index`` from the dataset's root
-(``TPUCV_COCO_ROOT`` / ``TPUCV_VOC_ROOT`` point it elsewhere); COCO
-detections are written to ``result/eval_results.json`` in the working
-directory, VOC plots (``--plots``) to ``result/plots``. ``--int8``
-calibrates on the first 32 images of the eval index and evaluates the
-quantized model (``tpucv_torch/quant.py``).
+(``TPUCV_COCO_ROOT`` / ``TPUCV_VOC_ROOT`` point it elsewhere; the
+classifiers read a folder-per-class tree at ``TPUCV_CLS_ROOT`` and print
+top-1 / top-5); COCO detections are written to
+``result/eval_results.json`` in the working directory, VOC plots
+(``--plots``) to ``result/plots``. ``--int8`` calibrates on the first 32
+images of the eval index and evaluates the quantized model
+(``tpucv_torch/quant.py``); the classifiers refuse it.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ from tpucv_torch.predict import require_int8
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tpucv_torch.evaluate")
     parser.add_argument("--model", type=str, required=True,
-                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd, "
-                             "centernet or deeplabv3plus")
+                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo8_cls, "
+                             "yolo7, ssd, centernet, deeplabv3plus or "
+                             "vit_cls")
     parser.add_argument("--dataset", type=str, default=None,
                         choices=["voc", "coco"])
     parser.add_argument("--ckpt", type=str, default="",

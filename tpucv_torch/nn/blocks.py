@@ -287,17 +287,17 @@ class Proto(nn.Module):
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Draw every conv weight from ``generator`` with LeCun-normal scale
-    (std = 1/sqrt(fan_in), flax's default conv init) and reset BatchNorm to
-    the identity. Conv biases are left to their owner (``DetectHead``
-    overwrites its own)."""
+    """Draw every conv and linear weight from ``generator``, in module
+    order, with LeCun-normal scale (std = 1/sqrt(fan_in), flax's default
+    Conv and Dense init), zero their biases (``DetectHead`` overwrites its
+    own) and reset BatchNorm and LayerNorm to the identity."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             with torch.no_grad():
                 m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                                  generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()

@@ -1,4 +1,4 @@
-"""Detection, segment and pose heads (counterpart of
+"""Detection, segment, pose and classify heads (counterpart of
 ``tpucv/nn/heads.py``).
 
 The heads are pure networks: they return per-level raw maps in tpucv's
@@ -7,6 +7,7 @@ and dist2bbox live in ``tpucv_torch.decode``. ``SegmentHead`` and
 ``PoseHead`` subclass ``DetectHead`` as ultralytics' ``Segment`` and
 ``Pose`` subclass ``Detect``, so their ``state_dict`` keys are
 ``cv2.*``, ``cv3.*``, ``cv4.*``, ``dfl.*`` (and ``proto.*``).
+``ClassifyHead`` is ultralytics' ``Classify``: ``conv.*`` and ``linear.*``.
 """
 
 from __future__ import annotations
@@ -119,6 +120,21 @@ class PoseHead(DetectHead):
     def forward(self, feats: Sequence[torch.Tensor]):
         det = super().forward(feats)
         return det, tuple(_nhwc(c(x)) for x, c in zip(feats, self.cv4))
+
+
+class ClassifyHead(nn.Module):
+    """Image classification head (tpucv's ``ClassifyHead``, ultralytics'
+    ``Classify``): a 1x1 ``ConvBnAct`` to ``mid_ch``, the mean over H and
+    W, and a ``Linear`` to ``nc``. Returns the logits (B, nc), not their
+    softmax."""
+
+    def __init__(self, in_ch: int, nc: int = 1000, mid_ch: int = 1280):
+        super().__init__()
+        self.conv = ConvBnAct(in_ch, mid_ch, 1)
+        self.linear = nn.Linear(mid_ch, nc)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(self.conv(x).mean(dim=(2, 3)))
 
 
 def dfl_project(box_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:

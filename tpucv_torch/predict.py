@@ -11,7 +11,8 @@ quantized model's loads quantized); without it the weights are random,
 drawn from seed 0. ``--int8`` quantizes the model after calibrating it on
 the ``--src`` images (batches of up to 8) or, for a video, on its first 8
 frames (``tpucv_torch/quant.py``). Drawn images go to ``--dst`` as
-``<name>@<timestamp>.jpg``.
+``<name>@<timestamp>.jpg``. The classifiers (``vit_cls``, ``yolo8_cls``)
+print their top-5 classes and draw nothing, and refuse ``--int8``.
 """
 
 from __future__ import annotations
@@ -32,10 +33,12 @@ def require_int8(algo, model_name: str) -> None:
 
 
 def summary(result: dict) -> str:
-    """One image's result in words: objects, masks, keypoints, or a
-    segmentation map."""
+    """One image's result in words: objects, masks, keypoints, a
+    segmentation map, or the top three classes."""
     if "class_map" in result:
         return "segmentation map"
+    if "labels" in result:              # classification: top-k names
+        return "top: " + ", ".join(result["labels"][:3])
     n = len(result["boxes"])
     if not n:
         return "no detections"
@@ -52,8 +55,9 @@ def summary(result: dict) -> str:
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tpucv_torch.predict")
     parser.add_argument("--model", type=str, required=True,
-                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd, "
-                             "centernet or deeplabv3plus")
+                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo8_cls, "
+                             "yolo7, ssd, centernet, deeplabv3plus or "
+                             "vit_cls")
     parser.add_argument("--ckpt", type=str, default="",
                         help="a trainer checkpoint bundle, or a torch "
                              "state_dict with ultralytics key names")

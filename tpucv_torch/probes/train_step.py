@@ -3,7 +3,9 @@ family's step (``make_train_step`` with the config's loss, bf16 autocast
 on the card) on a batch that already lies on the device.
 
 The size is the config's own (640 for the YOLOs, 513 for DeepLab, whose
-batch holds label maps: ``bench.family_batch``'s). For each model it reports the step's time
+batch holds label maps, and 224 for ``vit_cls`` and ``yolo8_cls``, whose
+batch holds one label an image: ``bench.family_batch``'s). For each model
+it reports the step's time
 (CUDA events over back-to-back steps), its kernels' time (torch.profiler,
 device time summed), the host's time to launch one step from an idle
 device (the median over the steps; near the step's time when the host,
@@ -15,6 +17,7 @@ launches under the kernels before them.
 
     python -m tpucv_torch.probes.train_step --model yolo7        # the card
     python -m tpucv_torch.probes.train_step --model deeplabv3plus
+    python -m tpucv_torch.probes.train_step --model vit_cls --model yolo8_cls
     python -m tpucv_torch.probes.train_step --device cpu --small
 """
 
@@ -95,8 +98,10 @@ def measure(model_name: str, dev, B: int, S: Optional[int],
                            ema_decay=cfg.optimizer.ema_decay,
                            mixed_precision=amp)
     dtype = torch.bfloat16 if amp else torch.float32
-    batch = (family_batch(model_name, cfg, B, S, dev, dtype) if seg else
-             synthetic_batch(B, S, cfg.dataset.max_num_boxes, dev, dtype))
+    if seg or model_name in ("vit_cls", "yolo8_cls"):
+        batch = family_batch(model_name, cfg, B, S, dev, dtype)
+    else:
+        batch = synthetic_batch(B, S, cfg.dataset.max_num_boxes, dev, dtype)
     step_ms = timed(lambda: step(state, batch), n, dev)
     host = []
     for _ in range(n):

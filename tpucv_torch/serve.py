@@ -46,8 +46,8 @@ def build(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", type=str, required=True,
                         help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd "
-                             "or centernet (deeplabv3plus has no "
-                             "serving path)")
+                             "or centernet (deeplabv3plus, vit_cls and "
+                             "yolo8_cls have no serving path)")
     parser.add_argument("--ckpt", type=str, default="",
                         help="a trainer checkpoint bundle, or a torch "
                              "state_dict with ultralytics key names")
@@ -79,7 +79,7 @@ def build(argv=None):
         raise SystemExit(
             f"{args.model} has no serving path: the server answers with "
             f"detections (_batched_detections), which a segmentation "
-            f"model does not give")
+            f"or classification model does not give")
     algo = algo_cls(cfg, device=args.device)
     if args.int8:
         require_int8(algo, args.model)

@@ -19,8 +19,9 @@ from tpucv_torch.builder import export_from_registry
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tpucv_torch.train")
     parser.add_argument("--model", type=str, required=True,
-                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo7, ssd, "
-                             "centernet or deeplabv3plus")
+                        help="yolo8_det, yolo8_seg, yolo8_pose, yolo8_cls, "
+                             "yolo7, ssd, centernet, deeplabv3plus or "
+                             "vit_cls")
     parser.add_argument("--max-steps", type=int, default=None,
                         help="stop after N optimizer steps (smoke runs)")
     parser.add_argument("--n-model", type=int, default=None,

@@ -304,7 +304,10 @@ class BaseTrainer:
         others the VOC ``{map50}``. Scores the EMA weights when the state
         has them, in a copy of the model that keeps its live BatchNorm
         statistics (tpucv pairs ``ema_params`` with ``batch_stats``); the
-        model being trained is not touched."""
+        model being trained is not touched. ``{}`` for an algorithm with no
+        detection protocol (classification), as in tpucv."""
+        if not hasattr(self.algorithm, "evaluate_on_voc"):
+            return {}
         index = self.val_index
         model = state.model
         if state.ema is not None:
