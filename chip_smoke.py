@@ -10,7 +10,11 @@ serve, evaluate, in-training mAP and int8 path, SSD300 and
 CenterNet-DLA34 through the same paths, DeepLabV3+-ResNet101 through
 its forward, trainer, predict, evaluate, int8 path and bench line, and
 ViT-S/16 and YOLOv8n-cls through their forwards, trainers, train steps,
-predict and top-1 / top-5 evaluate.
+predict and top-1 / top-5 evaluate; then the export layer (torch.export
+and torch.compile of the serving program, int8 included), data
+parallelism (world size 1 over NCCL through the trainer, two ranks over
+gloo on the card, a ZeRO-1 checkpoint resumed in one process), the bench
+at YOLOv8 s/m/l/x and the shipped YOLOv7-x and SSD512.
 
     python3 chip_smoke.py
 
@@ -326,6 +330,32 @@ script started); any failure exits non-zero:
             probability within CLS_PROB_ATOL and each image's hits equal
             where its ranking is clear of ties; --int8 refused.
 64. cls_eval  each trainer's evaluate_loop: val_loss and val_acc.
+65. export  YOLOv8n's serving program (bench.inference_program, B=8 serve
+            images at 640, bf16, K = 512: nms_keep) through
+            deploy.export_serialized -> load_serialized, here and in a
+            fresh process that imports tpucv_torch.ops alone, bit-equal to
+            eager; deploy.aot_compile of the f32 program (inductor) within
+            EXPORT_BOX_PX / EXPORT_SCORE_TOL of eager f32 with the same
+            valid set and classes, another batch refused; nms_keep once a
+            call through each form; ms a batch of each beside eager, and
+            of the f32 pair the device's ms with the host ahead; the int8
+            model's exported served forward (bf16 autocast: raw maps) and
+            every quantized conv's int32 accumulators bit-equal to the
+            eager card route.
+66. ddp     world size 1 over NCCL through yolo8_det's trainer (3 steps,
+            with and without ZeRO) bit-equal to the trainer without a
+            process group; two ranks spawned over gloo on the card for
+            DDP_FAMILIES (global batch DDP_BATCH, f32, 3 steps, with and
+            without ZeRO) within the DDP_* bounds of one process's steps;
+            the ZeRO run's checkpoint resumed in one process bit-equal;
+            step ms of the two ranks against one process.
+67. bench_scale  python -m tpucv_torch.bench --scale s|m|l|x's lines
+            (nms_keep 21 times each), then nms_keep at B = 64, 32, 16,
+            K = 512 against its plain version and bound (kernel_time).
+68. yolo7x_* / ssd512_*  the shipped YOLOv7-x (640) and SSD512: f32
+            parity card against CPU (B=2, the family's parity phase), one
+            B=16 bf16 train step (ms, peak memory), and the bench line
+            through bench.bench_family at the family's batches.
 
 The line before the last holds {"kernels": [...]} (nms_keep, with its
 launches on every path that runs it, the int8, YOLOv7, SSD, CenterNet,
@@ -379,6 +409,27 @@ CLS_PROB_ATOL = 1e-5       # f32 softmax probabilities, card against CPU
 DIOU_SCAN = frozenset({"centernet"})   # families whose NMS is the DIoU
                                        # scan at every K: never nms_keep
 ROOT = Path(__file__).resolve().parent
+EXPORT_BOX_PX = 1e-3        # aot_compile's f32 program against eager f32
+EXPORT_SCORE_TOL = 1e-5     # (inductor fuses f32 arithmetic in another order)
+DDP_FAMILIES = ("yolo8_det", "ssd")   # the headline, and SSD300: BN-heavy,
+#                                       its loss's normalisers span the batch
+DDP_BATCH = 4               # the two-rank runs' global batch (2 a rank)
+DDP_STEPS = 3
+# Two gloo ranks against one process on the global batch (f32, TF32 off):
+# the first step differs only by the order of the sums (measured: loss
+# 2.8e-7 relative, BN statistics 1.2e-7); from the second on, Adam moves
+# elements whose gradient is rounding noise by up to lr either way, so the
+# runs part as f32 parts them (measured after three steps: losses 1.3e-2
+# relative, BN statistics 3.8e-2 of each tensor's largest, weights a
+# median of 4.4e-5 apart; NVIDIA H100 80GB HBM3, 700.00 W)
+DDP_LOSS_REL = (1e-5, 5e-2)  # the first step's loss, the later steps'
+DDP_STAT1_ATOL = 1e-6       # BN running statistics after the first step
+DDP_STAT_REL = 0.1          # ... after DDP_STEPS, of each tensor's largest
+DDP_PARAM_MEDIAN = 2e-4     # median |two ranks - one process| of the weights
+SIMOTA_TIE_REL = 1e-6       # slate costs this close (relative) are a tie:
+#                             ~9 f32 ulps; the card's log and sigmoid part
+#                             from the CPU's by an ulp or two
+VARIANT_BATCH = 16          # the variants' shipped training batch
 AUG_PIXEL_TOL = 1e-5   # augment_batch, card against CPU, f32 values in [0, 1]
 TRAIN_STEPS = 40       # 10 epochs of the synthetic set's 4 batches of 16
 STEADY_FROM = 8        # the trainer's window: steps 8-39 (epochs 2-9)
@@ -540,6 +591,32 @@ def yolo7_int8_outputs(algo, f_maps, q_maps):
                   for t in (f, q))
         scores.append((fs[..., 4:5] * fs[..., 5:], qs[..., 4:5] * qs[..., 5:]))
     return groups, scores
+
+
+def simota_ties(cpu, card):
+    """Where two devices' simOTA assignments (``simota_assign``: matched,
+    GT row, slate costs, slate anchors) part. For each GT whose anchors
+    differ: the anchors one device alone gives it, and their slate costs
+    on the CPU. It is a tie when there are two or more and their costs lie
+    within SIMOTA_TIE_REL of each other; any other difference is listed
+    under ``not_ties``."""
+    (m0, g0, cost, cand), (m1, g1) = cpu, card[:2]
+    differ = (m0 != m1) | (m0 & (g0 != g1))
+    ties, not_ties = [], []
+    for b in range(cost.shape[0]):
+        gts = (set(g0[b][differ[b] & m0[b]].tolist())
+               | set(g1[b][differ[b] & m1[b]].tolist()))
+        for m in sorted(gts):
+            moved = sorted(
+                set((m0[b] & (g0[b] == m)).nonzero().flatten().tolist())
+                ^ set((m1[b] & (g1[b] == m)).nonzero().flatten().tolist()))
+            costs = [float(cost[b, m][cand[b, m] == a].min()) for a in moved]
+            tie = (len(moved) >= 2 and max(costs) - min(costs)
+                   <= SIMOTA_TIE_REL * max(abs(c) for c in costs))
+            (ties if tie else not_ties).append(
+                {"image": b, "gt": m, "anchors": moved, "cpu_costs": costs})
+    return {"differing_anchors": int(differ.sum()), "ties": ties,
+            "not_ties": not_ties}
 
 
 def ssd_int8_outputs(algo, f_out, q_out):
@@ -2782,16 +2859,23 @@ class Smoke:
         algo = algo_cls(cfg, device=self.dev)
         return algo, algo.init_variables(seed=0)
 
-    def phase_yolo7_parity(self, algo, model):
+    def phase_yolo7_parity(self, algo, model, phase="yolo7_parity"):
         """The f32 forward (TF32 off) of the seed-0 YOLOv7-l at 640, B=2,
         unsharpened, on the card against the CPU: in each map the box rows
         and the objectness and class rows apart, each within
         YOLO7_FWD_REL of its largest value; the same forward with TF32 on,
         reported beside it. Then ``yolov7_loss`` on the CPU's maps, on
         both devices, with 100 GT rows an image (some padded, some off the
-        anchors' ratios): num_match equal and each term within 1e-4
-        relative."""
+        anchors' ratios): num_match equal; simOTA's assignment
+        (``simota_assign``) equal but where a GT's slate holds a tie: the
+        anchors it takes on one device and not the other costing, on the
+        CPU, within SIMOTA_TIE_REL of each other (an equal cost's order
+        then rests on an ulp of the card's log); and each term within
+        1e-4 relative, the card's taken on the CPU's assignment. The terms
+        of each device's own assignment are reported beside them."""
         import copy
+
+        from tpucv_torch.losses.yolov7 import simota_assign, yolov7_loss
 
         torch = self.torch
         cpu = torch.device("cpu")
@@ -2832,31 +2916,53 @@ class Smoke:
                   [cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)),
               "gt_labels": torch.from_numpy(rng.integers(0, 20, (2, 100))),
               "gt_mask": torch.from_numpy(rng.random((2, 100)) < 0.3)}
-        loss_fn = algo.build_loss()
-        runs = []
-        for dev in (cpu, self.dev):
+        box_g, obj_g, cls_g = algo.cfg.loss_gains()
+        kw = dict(anchors=algo.anchors, strides=algo.strides, nc=algo.nc)
+
+        def loss(dev, assignment=None):
             with torch.inference_mode():
-                total, parts = loss_fn([r.to(dev) for r in raw],
-                                       {k: v.to(dev) for k, v in gt.items()})
-            runs.append({"loss": float(total),
-                         **{k: float(v) for k, v in parts.items()}})
-        c, g = runs
-        terms = {k: abs(g[k] - v) / max(abs(v), 1e-12) for k, v in c.items()}
-        emit({"phase": "yolo7_parity", "shapes": [list(t.shape) for t in got],
+                total, parts = yolov7_loss(
+                    [r.to(dev) for r in raw],
+                    *(gt[k].to(dev) for k in ("gt_bboxes", "gt_labels",
+                                              "gt_mask")),
+                    box_gain=box_g, obj_gain=obj_g, cls_gain=cls_g,
+                    layer_balance=algo.cfg.loss.layer_balance,
+                    assignment=assignment, **kw)
+            return {"loss": float(total),
+                    **{k: float(v) for k, v in parts.items()}}
+
+        with torch.inference_mode():
+            a_cpu, a_card = (
+                [t.cpu() for t in simota_assign(
+                    [r.to(dev) for r in raw],
+                    *(gt[k].to(dev) for k in ("gt_bboxes", "gt_labels",
+                                              "gt_mask")), **kw)]
+                for dev in (cpu, self.dev))
+        ties = simota_ties(a_cpu, a_card)
+        c, g = loss(cpu), loss(self.dev)
+        g_on_cpu = loss(self.dev, [t.to(self.dev) for t in a_cpu[:2]])
+        terms = {k: abs(g_on_cpu[k] - v) / max(abs(v), 1e-12)
+                 for k, v in c.items()}
+        emit({"phase": phase, "shapes": [list(t.shape) for t in got],
               "forward_max_rel_err": max(rel.values()),
               "forward_rel_err_by_group": rel,
               "forward_tf32_max_rel_err": max(rel_tf32.values()),
               "forward_tf32_rel_err_by_group": rel_tf32,
-              "loss_cpu": c, "loss_card": g,
-              "loss_max_rel_err": max(terms.values())})
+              "loss_cpu": c, "loss_card_on_cpu_assignment": g_on_cpu,
+              "loss_max_rel_err": max(terms.values()),
+              "assignment": ties, "loss_card_own_assignment": g})
         check(max(rel.values()) < YOLO7_FWD_REL,
               f"yolo7: the f32 forward on the card differs from the CPU: "
               f"{rel} of each group's largest value")
         check(c["num_match"] == g["num_match"] > 0,
               f"yolo7: num_match card {g['num_match']} against CPU "
               f"{c['num_match']}")
+        check(not ties["not_ties"],
+              f"yolo7: simOTA parts card from CPU where no costs tie: "
+              f"{ties['not_ties']}")
         check(max(terms.values()) <= 1e-4,
-              f"yolo7: loss card {g} against CPU {c}")
+              f"yolo7: loss card {g_on_cpu} against CPU {c}, one "
+              f"assignment")
 
     def phase_yolo7_decode(self, algo, model, imgs):
         """``decode_yolov7`` on the card against the CPU on the same raw
@@ -3296,8 +3402,9 @@ class Smoke:
         algo = algo_cls(cfg, device=self.dev)
         return algo, algo.init_variables(seed=0)
 
-    def phase_ssd_parity(self, algo, model):
-        """The f32 forward (TF32 off) of the seed-0 SSD300 at B=2 on the card
+    def phase_ssd_parity(self, algo, model, phase="ssd_parity"):
+        """The f32 forward (TF32 off) of the seed-0 SSD (300, or 512 for the
+        ssd512 variant; coordinates scaled with the size) at B=2 on the card
         against the CPU, loc and conf apart, each within SSD_FWD_REL of its
         own largest value; the forward's conv FLOPs and output elements an
         image, counted by hooks on the CPU's run. Then, from the CPU's outputs and 100 GT rows an
@@ -3311,8 +3418,10 @@ class Smoke:
 
         torch = self.torch
         cpu = torch.device("cpu")
+        S = algo.input_size
+        k = S / 300
         x = torch.from_numpy(np.random.default_rng(3).random(
-            (2, 300, 300, 3), dtype=np.float32))
+            (2, S, S, 3), dtype=np.float32))
         work = [0, 0]                  # multiply-adds, output elements
 
         def count(mod, _, out):
@@ -3333,10 +3442,10 @@ class Smoke:
         rel = {k: float((g - c).abs().max() / c.abs().max())
                for k, g, c in zip(("loc", "conf"), got, raw)}
         rng = np.random.default_rng(4)
-        cxy = rng.uniform(10, 290, (2, 100, 2))
-        wh = rng.uniform(6, 250, (2, 100, 2))
+        cxy = rng.uniform(10 * k, 290 * k, (2, 100, 2))
+        wh = rng.uniform(6 * k, 250 * k, (2, 100, 2))
         gt = {"gt_bboxes": torch.from_numpy(np.clip(np.concatenate(
-                  [cxy - wh / 2, cxy + wh / 2], -1), 0, 300).astype(
+                  [cxy - wh / 2, cxy + wh / 2], -1), 0, S).astype(
                   np.float32)),
               "gt_labels": torch.from_numpy(rng.integers(0, 20, (2, 100))),
               "gt_mask": torch.from_numpy(rng.random((2, 100)) < 0.3)}
@@ -3346,7 +3455,7 @@ class Smoke:
             g = {k: v.to(dev) for k, v in gt.items()}
             with torch.inference_mode():
                 targets.append([t.cpu() for t in assign_ssd_targets(
-                    g["gt_bboxes"] / 300.0, g["gt_labels"], g["gt_mask"],
+                    g["gt_bboxes"] / float(S), g["gt_labels"], g["gt_mask"],
                     a.priors)])
                 total, parts = a.build_loss()([r.to(dev) for r in raw], g)
             runs.append({"loss": float(total),
@@ -3355,7 +3464,7 @@ class Smoke:
         loc_err = float((gl - cl).abs().max() / cl.abs().max())
         c, g = runs
         terms = {k: abs(g[k] - v) / max(abs(v), 1e-12) for k, v in c.items()}
-        emit({"phase": "ssd_parity", "shapes": [list(t.shape) for t in got],
+        emit({"phase": phase, "shapes": [list(t.shape) for t in got],
               "forward_gflops_per_image": 2 * work[0] / x.shape[0] / 1e9,
               "conv_outputs_per_image": work[1] // x.shape[0],
               "forward_rel_err": rel, "targets_cls_pos_equal":
@@ -4564,6 +4673,428 @@ class Smoke:
         emit({"phase": phase, "images": len(imgs), "detections": n,
               "classes_equal": True, "box_max_abs_err": box_err})
 
+    # ------------------------------------- export, data parallelism, variants
+    def phase_export(self, algo, model, imgs):
+        """The export layer (``tpucv_torch.deploy``) on YOLOv8n's serving
+        program (``bench.inference_program``: ``letterbox_static``,
+        normalize, the forward under bf16 autocast, ``decode_boxes`` at
+        ``pre_nms_topk`` 512) over 8 serve images letterboxed to 640 (K =
+        512: nms_keep). ``export_serialized`` -> ``load_serialized`` here,
+        and the artifact in a fresh process that imports
+        ``tpucv_torch.ops`` alone: each output bit-equal to the eager
+        program's. ``aot_compile`` of the same program in f32 (inductor
+        fuses f32 arithmetic in another order, so not bit for bit): valid
+        set and classes equal to the eager f32 program's, boxes within
+        EXPORT_BOX_PX, scores within EXPORT_SCORE_TOL; another batch size
+        refused. nms_keep's count zeroed just before each form's checked
+        call, read just after: one a call. ms a batch of each form beside
+        the eager one's, in turns, and of the f32 pair the device's ms with
+        the host queued ahead (``timed_queued``): host-bound or not. Then
+        int8: the model quantized on the 8 images (quantize_variables), its
+        served forward (bf16 autocast) exported: the raw maps bit-equal to
+        the eager int8 forward's; and every quantized conv's
+        int32 accumulators through one exported program bit-equal to the
+        eager card route's and the plain route's (float64 F.conv2d)."""
+        from tpucv_torch import bench, deploy
+        from tpucv_torch.ops import cuda_nms
+        from tpucv_torch.probes.common import timed, timed_queued
+
+        torch = self.torch
+        nms = cuda_nms.nms_keep
+        x = self.letterboxed(algo, imgs[:8])
+        size = algo.input_size
+
+        def counted(fn, *args):
+            nms.launches = 0
+            with torch.inference_mode():
+                out = fn(*args)
+            self.sync()
+            return out, nms.launches
+
+        _, program = bench.inference_program(model, size, amp=True)
+        eager, n_eager = counted(program, x)
+        check(int(eager[3].sum()) > 0, "export: the eager program kept "
+                                       "no detection")
+        t0 = time.perf_counter()
+        data = deploy.export_serialized(program, x)
+        export_s = time.perf_counter() - t0
+        loaded = deploy.load_serialized(data)
+        got, n_loaded = counted(loaded, x)
+        check(n_eager == n_loaded == 1,
+              f"export: nms_keep launched {n_eager} (eager) and {n_loaded} "
+              f"(loaded) times a call, not once")
+        check(all(torch.equal(a, b) for a, b in zip(eager, got)),
+              "export: the loaded program's detections differ from eager")
+        text = deploy.export_stablehlo(program, x)
+        check("tpucv.nms_keep" in text, "export: no tpucv.nms_keep node")
+
+        fresh = self.fresh_process_outputs(data, x)
+        check(fresh["launches"] == 1,
+              f"export: the fresh process launched nms_keep "
+              f"{fresh['launches']} times")
+        check(all(torch.equal(a, b.to(self.dev))
+                  for a, b in zip(eager, fresh["outputs"])),
+              "export: the fresh process's detections differ from eager")
+
+        _, program32 = bench.inference_program(model, size, amp=False)
+        eager32, _ = counted(program32, x)
+        t0 = time.perf_counter()
+        compiled = deploy.aot_compile(program32, x)
+        compile_s = time.perf_counter() - t0
+        got32, n_compiled = counted(compiled, x)
+        check(n_compiled == 1, f"aot_compile: nms_keep launched "
+                               f"{n_compiled} times a call")
+        eb, es, ec, ev = eager32
+        cb, cs, cc, cv = got32
+        box_err = float((cb - eb)[ev].abs().max()) if ev.any() else 0.0
+        score_err = float((cs - es)[ev].abs().max()) if ev.any() else 0.0
+        check(torch.equal(ev, cv) and torch.equal(ec[ev], cc[cv])
+              and int(ev.sum()) > 0,
+              "aot_compile: valid set or classes differ from eager f32")
+        check(box_err <= EXPORT_BOX_PX and score_err <= EXPORT_SCORE_TOL,
+              f"aot_compile: boxes {box_err} px, scores {score_err} from "
+              f"eager f32")
+        try:
+            compiled(x[:4])
+            locked = False
+        except TypeError:
+            locked = True
+        check(locked, "aot_compile: a call at another batch size ran")
+
+        def turns(a, b, n=20):
+            with torch.inference_mode():
+                a1, b1 = timed(a, n, self.dev), timed(b, n, self.dev)
+                b2, a2 = timed(b, n, self.dev), timed(a, n, self.dev)
+            return [a1, a2], [b1, b2]
+
+        eager_ms, loaded_ms = turns(lambda: program(x), lambda: loaded(x))
+        eager32_ms, compiled_ms = turns(lambda: program32(x),
+                                        lambda: compiled(x))
+        # the device's time with the host ahead of it, and dynamo's graphs
+        with torch.inference_mode():
+            device_ms = {"eager_f32": timed_queued(lambda: program32(x), 20,
+                                                   self.dev),
+                         "aot_compile_f32": timed_queued(lambda: compiled(x),
+                                                         20, self.dev)}
+        graphs = dict(torch._dynamo.utils.counters["stats"])
+        del compiled
+        torch._dynamo.reset()
+        int8 = self.export_int8(algo, model, imgs, x[:2])
+        row = {"phase": "export", "batch": x.shape[0], "size": size,
+               "K": 512, "detections": int(ev.sum()),
+               "export_s": export_s, "artifact_bytes": len(data),
+               "compile_s": compile_s,
+               "launches": {"eager": n_eager, "loaded": n_loaded,
+                            "fresh_process": fresh["launches"],
+                            "aot_compile": n_compiled},
+               "loaded_bit_equal": True, "fresh_process_bit_equal": True,
+               "fresh_process_modules": fresh["modules"],
+               "aot_compile_box_max_abs_err_px": box_err,
+               "aot_compile_score_max_abs_err": score_err,
+               "ms_per_batch": {"eager_bf16": min(eager_ms),
+                                "loaded_bf16": min(loaded_ms),
+                                "eager_f32": min(eager32_ms),
+                                "aot_compile_f32": min(compiled_ms)},
+               "ms_runs": {"eager_bf16": eager_ms, "loaded_bf16": loaded_ms,
+                           "eager_f32": eager32_ms,
+                           "aot_compile_f32": compiled_ms},
+               "device_ms_host_ahead": device_ms, "dynamo_stats": graphs,
+               "int8": int8}
+        emit(row)
+        return row
+
+    def fresh_process_outputs(self, data, x):
+        """The artifact run by a new Python process that imports
+        ``tpucv_torch.ops`` (the operator's registration) and nothing
+        that builds a model: its outputs, nms_keep's count there, and the
+        port's modules it had imported."""
+        torch = self.torch
+        d = ROOT / "saves" / "chip_smoke" / "export"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "program.pt2").write_bytes(data)
+        torch.save(x.cpu(), d / "x.pt")
+        code = (
+            "import json, sys, torch\n"
+            "import tpucv_torch.ops\n"
+            "from tpucv_torch.ops import cuda_nms\n"
+            "d = sys.argv[1]\n"
+            "program = torch.export.load(d + '/program.pt2').module()\n"
+            "x = torch.load(d + '/x.pt').cuda()\n"
+            "with torch.inference_mode():\n"
+            "    out = program(x)\n"
+            "torch.cuda.synchronize()\n"
+            "torch.save([o.cpu() for o in out], d + '/out.pt')\n"
+            "print(json.dumps({'launches': cuda_nms.nms_keep.launches,\n"
+            "                  'modules': sorted(m for m in sys.modules\n"
+            "                                    if m.startswith('tpucv'))}))\n")
+        r = subprocess.run([sys.executable, "-c", code, str(d)], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        check(r.returncode == 0, f"export: the fresh process failed: "
+                                 f"{r.stderr[-2000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        check(not any(m.startswith(("tpucv_torch.models", "tpucv_torch.nn",
+                                    "tpucv_torch.algorithms")) or
+                      m == "tpucv" or m.startswith("tpucv.")
+                      for m in res["modules"]),
+              f"export: the fresh process imported {res['modules']}")
+        res["outputs"] = torch.load(d / "out.pt")
+        return res
+
+    def export_int8(self, algo, model, imgs, x):
+        """The int8 model through ``export_serialized``: its served forward
+        (bf16 autocast) reloaded, its raw maps bit-equal to the eager int8
+        forward's; and every quantized conv's int32 accumulators at its
+        served inputs, through one exported program, bit-equal to eager
+        (both the card route) and to the plain route."""
+        from tpucv_torch import bench, deploy, quant
+        from tpucv_torch.ops import int8_conv
+
+        torch = self.torch
+        q = algo.quantize_variables(model, [(im,) for im in imgs[:8]],
+                                    n_images=8, batch_size=2)
+        served, _ = bench.inference_program(q, algo.input_size, amp=True)
+        seen = []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, inp: seen.append((mod, inp[0].detach())))
+            for _, m in quant.hooked(q) if m.qweight is not None]
+        try:
+            with torch.no_grad():
+                served(x)
+        finally:
+            for h in hooks:
+                h.remove()
+        with torch.no_grad():
+            maps = served(x)
+        loaded = deploy.load_serialized(deploy.export_serialized(served, x))
+        with torch.no_grad():
+            got = loaded(x)
+        self.sync()
+        check(all(a.dtype == torch.bfloat16 and torch.equal(a, b)
+                  for a, b in zip(maps, got)),
+              "export int8: the loaded bf16 raw maps differ from eager")
+
+        def geom(m):
+            c = m.conv
+            return (c.kernel_size, c.stride, c.padding, c.dilation, c.groups)
+
+        class Accumulators(torch.nn.Module):
+            def __init__(self, mods):
+                super().__init__()
+                self.mods = torch.nn.ModuleList(mods)
+
+            def forward(self, *xs):
+                return tuple(int8_conv.int8_conv(
+                    quant.quantize_activation(xi, m.xscale), m.qweight,
+                    *geom(m)) for m, xi in zip(self.mods, xs))
+
+        acc = Accumulators([m for m, _ in seen])
+        xs = [xi for _, xi in seen]
+        with torch.no_grad():
+            eager = acc(*xs)
+            plain = [int8_conv.conv_plain(
+                quant.quantize_activation(xi, m.xscale), m.qweight,
+                *geom(m)) for m, xi in seen]
+            exported = deploy.load_serialized(
+                deploy.export_serialized(acc, *xs))(*xs)
+        self.sync()
+        bad = sum(int((e != g).sum()) + int((p != g).sum())
+                  for e, p, g in zip(eager, plain, exported))
+        check(bad == 0, f"export int8: {bad} int32 accumulators of the "
+                        f"exported program differ")
+        n_q = quant.count_quantized(q)
+        check(len(seen) == n_q, f"export int8: {len(seen)} of {n_q} convs")
+        return {"count_quantized": n_q, "bf16_maps_bit_equal": True,
+                "accumulators_bit_equal": True, "convs_compared": len(seen),
+                "accumulator_inputs": "bf16 autocast", "batch": x.shape[0]}
+
+    def phase_ddp(self):
+        """Data parallelism on the one card. World size 1 over NCCL through
+        the trainer: yolo8_det as shipped, 3 steps, with and without ZeRO,
+        bit-equal to the trainer without a process group (weights, BN
+        statistics, EMA, Adam's state). Then two ranks spawned over gloo
+        on the one card (NCCL refuses two ranks on one GPU), each feeding
+        its rows of a global batch of DDP_BATCH (DDP_FAMILIES at their
+        shipped sizes, f32, TF32 off, Adam 1e-3, EMA 0.9999), with and
+        without ZeRO, 3 steps, against one process's steps on the global
+        batch: losses, BN statistics (after the first step and the last)
+        and parameters within the DDP_* bounds; the two ranks equal. The ZeRO run of yolo8_det saves a
+        checkpoint, which resumes in one process bit-equal to the ranks'
+        state (weights, EMA, both ranks' moments, step).
+        Step ms of each, host clock with a sync: gloo stages every
+        collective through the host, so the two-rank step is slower."""
+        import torch.distributed as dist
+        import torch.multiprocessing as mp
+
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.train.state import TrainState
+
+        torch = self.torch
+        out = {"phase": "ddp", "families": list(DDP_FAMILIES),
+               "global_batch": DDP_BATCH, "steps": DDP_STEPS}
+        runs = {}
+        for tag in ("plain", "nccl", "nccl_zero"):
+            if tag != "plain":
+                dist.init_process_group(
+                    "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                    world_size=1, rank=0)
+            try:
+                runs[tag] = ddp_trainer_run(self.dev, tag)
+            finally:
+                if tag != "plain":
+                    dist.destroy_process_group()
+        for tag in ("nccl", "nccl_zero"):
+            diff = [k for k, v in runs["plain"].items()
+                    if not torch.equal(v, runs[tag][k])]
+            check(not diff, f"ddp: the W=1 {tag} trainer differs from the "
+                            f"plain one in {diff[:5]}")
+        out["world1_nccl_trainer_bit_equal"] = True
+
+        d = ROOT / "saves" / "chip_smoke" / "ddp"
+        d.mkdir(parents=True, exist_ok=True)
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=ddp_rank, args=(r, 2, port, str(d)))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(900)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0, 0], f"ddp: the ranks exited with {codes}")
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        for name in DDP_FAMILIES:
+            ref = ddp_run(name, self.dev)
+            fam = {"one_process_step_ms": ref["step_ms"]}
+            for zero in (False, True):
+                a, b = (r[name][zero] for r in ranks)
+                check(all(torch.equal(v, b["sd"][k])
+                          for k, v in a["sd"].items()),
+                      f"ddp {name} zero={zero}: the ranks' weights differ")
+                fam[f"zero={zero}"] = ddp_compare(name, a, ref)
+                fam[f"zero={zero}"]["two_rank_step_ms"] = a["step_ms"]
+            out[name] = fam
+        # the W=2 ZeRO bundle in one process
+        ckpt = d / "zero.ckpt"
+        zero_runs = [r["yolo8_det"][True] for r in ranks]
+        state = TrainState.create(ddp_model("yolo8_det", self.dev, seed=1),
+                                  1e-3, use_ema=True)
+        CheckPoint.load(str(ckpt), state)
+        check(state.step == DDP_STEPS, f"ddp: resumed at {state.step}")
+        check(all(torch.equal(v.cpu(), zero_runs[0]["sd"][k])
+                  for k, v in state.model.state_dict().items()),
+              "ddp: the ZeRO bundle's weights differ from the ranks'")
+        check(all(torch.equal(state.ema[k].cpu(), v)
+                  for k, v in zero_runs[0]["ema"].items()),
+              "ddp: the ZeRO bundle's EMA differs from the ranks'")
+        held = {**zero_runs[0]["moments"], **zero_runs[1]["moments"]}
+        names = {id(p): n for n, p in state.params.items()}
+        loaded = {names[id(p)]: s for p, s in state.optimizer.state.items()}
+        check(held.keys() == loaded.keys() and all(
+            torch.equal(loaded[n][k].cpu(), v)
+            for n, m in held.items() for k, v in m.items()),
+            "ddp: the ZeRO bundle's moments differ from the ranks'")
+        out["zero_checkpoint_bit_equal"] = True
+        out["zero_moment_bytes_by_rank"] = [r["yolo8_det"][True][
+            "moment_bytes"] for r in ranks]
+        emit(out)
+        return out
+
+    def phase_scales(self, offs, thr):
+        """``python -m tpucv_torch.bench --scale s|m|l|x``'s main, each with
+        nms_keep's count zeroed just before and read just after (the
+        program's NMS at K = 512: one a call, warm-up included); then
+        nms_keep at the scales' inference batches (64, 32, 16) and K = 512
+        on the first rows of the bench program's candidates, against its
+        plain version and its bound."""
+        from tpucv_torch import bench
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        lines = {}
+        for s in sorted(bench.SCALE_BATCHES, key="smlx".index):
+            nms_keep.launches = 0
+            line = bench.main(["--scale", s])
+            n = nms_keep.launches
+            check(n == bench.SCALE_ITERS[0] + 1,
+                  f"bench --scale {s}: nms_keep launched {n} times")
+            check(np.isfinite(line["value"]) and
+                  np.isfinite(line["train_step_ms"]),
+                  f"bench --scale {s}: {line}")
+            lines[s] = {**line, "nms_launches": n}
+        emit({"phase": "bench_scale", "lines": lines})
+        sb, ss = offs
+        for B in sorted({b for b, _ in bench.SCALE_BATCHES.values()},
+                        reverse=True):
+            self.time_kernel(sb[:B].contiguous(), ss[:B].contiguous(), thr,
+                             f"scale_B{B}_K512")
+        return {f"bench_scale_{s} (K=512)": v["nms_launches"]
+                for s, v in lines.items()}
+
+    def variant_setup(self, name):
+        """A shipped variant (``bench.VARIANTS``: YOLOv7-x, SSD512) as its
+        family's algorithm on the card, and its seed-0 model."""
+        from tpucv_torch import bench
+
+        family, cfg, algo_cls = bench.configured(name)
+        algo = algo_cls(cfg, device=self.dev)
+        return family, algo, algo.init_variables(seed=0)
+
+    def phase_variant(self, name):
+        """A shipped variant never run on the card before: its f32 parity
+        (the family's parity phase, B=2, card against CPU), one train step
+        at the shipped batch (B=16, bf16 autocast, Adam 1e-3, EMA 0.9999,
+        bench's family batch: 3 warm-up, 5 timed), and its
+        ``bench.bench_family`` line at the family's batches, nms_keep's
+        count zeroed just before, read just after."""
+        from tpucv_torch import bench
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.probes.common import timed
+        from tpucv_torch.train.state import TrainState, make_train_step
+
+        torch = self.torch
+        family, algo, model = self.variant_setup(name)
+        if family == "yolo7":
+            self.phase_yolo7_parity(algo, model, phase=f"{name}_parity")
+        else:
+            self.phase_ssd_parity(algo, model, phase=f"{name}_parity")
+        S = algo.cfg.dataset.input_size
+        state = TrainState.create(model, 1e-3, use_ema=True)
+        step = make_train_step(algo.build_loss(), device=self.dev,
+                               ema_decay=0.9999, mixed_precision=True)
+        batch = bench.family_batch(family, algo.cfg, VARIANT_BATCH, S,
+                                   self.dev, torch.bfloat16)
+        last = {}
+
+        def one():
+            nonlocal state, last
+            state, last = step(state, batch)
+
+        one()
+        one()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        ms = timed(one, 5, self.dev)
+        metrics = {k: float(v) for k, v in last.items()}
+        check(all(np.isfinite(v) for v in metrics.values()),
+              f"{name}: non-finite step metrics {metrics}")
+        emit({"phase": f"{name}_step", "batch": VARIANT_BATCH, "size": S,
+              "step_ms": ms, "img_per_s": VARIANT_BATCH * 1e3 / ms,
+              "metrics": metrics,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(self.dev)})
+        del state, step, model, batch
+        nms_keep.launches = 0
+        line = bench.bench_family(name, self.dev)
+        n = nms_keep.launches
+        check(line["metric"] == f"{name}_{S}_e2e_images_per_sec_per_chip"
+              and np.isfinite(line["value"]), f"{name}: bench line {line}")
+        emit({"phase": f"{name}_bench", **line, "nms_launches": n})
+        return n
+
     def bound(self, sb, ss, keep, thr):
         """Least time for the greedy keep mask on these inputs: bytes (boxes
         and scores read once, the mask written once) over HBM bandwidth,
@@ -4635,6 +5166,167 @@ class Smoke:
         self.shapes.append(row)
         emit({"phase": "kernel_time", **row})
         return row
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_trainer_run(dev, tag):
+    """yolo8_det's trainer as shipped for DDP_STEPS steps (``nccl_zero``:
+    with ``train.zero_opt``), writing under saves/chip_smoke/ddp_<tag>:
+    its final weights, EMA and Adam state, on the CPU."""
+    import torch
+
+    from tpucv_torch.builder import export_from_registry
+    from tpucv_torch.ckpt.checkpoint import replicated_optimizer_state
+
+    cfg, _, cls = export_from_registry("yolo8_det")
+    root = ROOT / "saves" / "chip_smoke" / f"ddp_{tag}"
+    cfg.train.save_path = str(root / "saves")
+    cfg.log.root = str(root / "log")
+    cfg.log.tensorboard_on = False
+    cfg.train.zero_opt = tag == "nccl_zero"
+    trainer = cls(cfg, device=dev)
+    state = trainer.train(max_steps=DDP_STEPS)
+    out = {f"model.{k}": v.cpu() for k, v in
+           state.model.state_dict().items()}
+    out.update({f"ema.{k}": v.cpu() for k, v in (state.ema or {}).items()})
+    opt = replicated_optimizer_state(state.optimizer)
+    for i, s in opt["state"].items():
+        out.update({f"adam.{i}.{k}": torch.as_tensor(v).cpu()
+                    for k, v in s.items()})
+    return out
+
+
+def ddp_model(name, dev, seed=0):
+    from tpucv_torch.builder import export_from_registry
+
+    cfg, algo_cls, _ = export_from_registry(name)
+    cfg.train.mixed_precision = False
+    return algo_cls(cfg, device=dev).init_variables(seed=seed)
+
+
+def ddp_run(name, dev, mesh=None, zero=False, ckpt=None):
+    """DDP_STEPS f32 steps of family ``name`` (seed-0 weights, Adam 1e-3,
+    EMA 0.9999) on bench's family batch of DDP_BATCH at the shipped size,
+    or on this rank's rows of it under ``mesh``: every step's metrics and
+    host-clock ms (synced), the final weights, EMA and the moments this
+    rank holds, on the CPU; ``ckpt``: the state saved there at the end."""
+    import torch
+
+    from tpucv_torch import bench
+    from tpucv_torch.builder import export_from_registry
+    from tpucv_torch.ckpt.checkpoint import CheckPoint
+    from tpucv_torch.parallel import mesh as pmesh
+    from tpucv_torch.train.state import TrainState, make_train_step
+
+    cfg, algo_cls, _ = export_from_registry(name)
+    cfg.train.mixed_precision = False
+    algo = algo_cls(cfg, device=dev)
+    S = cfg.dataset.input_size
+    batch = bench.family_batch(name, cfg, DDP_BATCH, S, dev, torch.float32)
+    if mesh is not None:
+        rows = torch.from_numpy(mesh.rows(DDP_BATCH)).to(dev)
+        batch = {k: v[rows] for k, v in batch.items()}
+    state = TrainState.create(algo.init_variables(seed=0), 1e-3,
+                              use_ema=True, zero_opt=zero)
+    step = make_train_step(algo.build_loss(), device=dev, ema_decay=0.9999,
+                           mixed_precision=False, mesh=mesh)
+    metrics, ms = [], []
+    for _ in range(DDP_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if len(metrics) == 1:
+            stats1 = {k: v.cpu().clone() for k, v in
+                      state.model.state_dict().items() if "running" in k}
+    if ckpt is not None:
+        CheckPoint.save(state, ckpt)
+    opt = state.optimizer
+    inner = opt.optim if pmesh.is_zero(opt) else opt
+    names = {id(p): n for n, p in state.params.items()}
+    return {"metrics": metrics, "step_ms": ms, "stats1": stats1,
+            "sd": {k: v.detach().cpu() for k, v in
+                   state.model.state_dict().items()},
+            "ema": {k: v.cpu() for k, v in state.ema.items()},
+            "moments": {names[id(p)]: {k: v.cpu() for k, v in s.items()}
+                        for p, s in inner.state.items()},
+            "moment_bytes": pmesh.moment_bytes(opt)}
+
+
+def ddp_rank(rank, world, port, out_dir):
+    """One of ``world`` ranks over gloo on cuda:0: ``ddp_run`` of each of
+    DDP_FAMILIES with and without ZeRO (yolo8_det's ZeRO run saves
+    ``zero.ckpt``), written to ``out_dir/rank<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpucv_torch.parallel import multihost
+    from tpucv_torch.parallel.mesh import DataMesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(f"tcp://127.0.0.1:{port}", world, rank,
+                         backend="gloo")
+    try:
+        mesh = DataMesh.current()
+        out = {name: {zero: ddp_run(
+            name, dev, mesh, zero,
+            str(Path(out_dir) / "zero.ckpt")
+            if (name, zero) == ("yolo8_det", True) else None)
+            for zero in (False, True)} for name in DDP_FAMILIES}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def ddp_compare(name, got, ref):
+    """A two-rank run against one process's on the global batch, held to
+    the DDP_* bounds; the measured differences."""
+    count = "num_fg" if name == "yolo8_det" else "num_pos"
+    g0, r0 = got["metrics"][0], ref["metrics"][0]
+    check(g0[count] == r0[count],
+          f"ddp {name}: {count} {g0[count]} against {r0[count]}")
+    loss_rel = [abs(g["loss"] - r["loss"]) / abs(r["loss"])
+                for g, r in zip(got["metrics"], ref["metrics"])]
+    stats = list(ref["stats1"])
+    stat1_err = max(float((got["stats1"][k] - ref["stats1"][k]).abs().max())
+                    for k in stats)
+    stat_rel = max(float((got["sd"][k] - ref["sd"][k]).abs().max() /
+                         ref["sd"][k].abs().max()) for k in stats)
+    diffs = torch_cat_abs(got["sd"], ref["sd"], [
+        k for k, v in ref["sd"].items()
+        if k not in stats and v.is_floating_point()])
+    res = {"loss_rel_err_by_step": loss_rel,
+           "bn_stats_step1_max_abs_err": stat1_err,
+           "bn_stats_final_max_rel_err": stat_rel,
+           "param_max_abs_err": float(diffs.max()),
+           "param_median_abs_err": float(diffs.median())}
+    check(loss_rel[0] <= DDP_LOSS_REL[0] and
+          max(loss_rel[1:]) <= DDP_LOSS_REL[1],
+          f"ddp {name}: losses {loss_rel} relative from one process")
+    check(stat1_err <= DDP_STAT1_ATOL and stat_rel <= DDP_STAT_REL,
+          f"ddp {name}: BN statistics {res} from one process")
+    check(res["param_max_abs_err"] <= 2 * DDP_STEPS * 1.05 * 1e-3 and
+          res["param_median_abs_err"] <= DDP_PARAM_MEDIAN,
+          f"ddp {name}: parameters {res} from one process")
+    return res
+
+
+def torch_cat_abs(a, b, keys):
+    import torch
+
+    return torch.cat([(a[k] - b[k]).abs().flatten() for k in keys])
 
 
 def in_turns(plain, kernel, dev, n_plain, n_kernel):
@@ -4968,6 +5660,15 @@ def main() -> int:
     cls["cls_predict"] = smoke.phase_cls_predict(cls_ckpts, imgs)
     cls["cls_evaluate (B=64)"] = smoke.phase_cls_evaluate(cls_ckpts)
     cls["cls_eval (evaluate_loop)"] = smoke.phase_cls_eval(cls_runs)
+
+    export = smoke.phase_export(algo, model, imgs)
+    nms_keep.launches = 0                    # just before the path
+    smoke.phase_ddp()
+    ddp_launches = nms_keep.launches
+    check(ddp_launches == 0, "the ddp phase launched nms_keep")
+    scale_launches = smoke.phase_scales(bench_offs[0], bench_thr)
+    y7x_launches = smoke.phase_variant("yolo7x")
+    ssd512_launches = smoke.phase_variant("ssd512")
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
     print(nvidia_smi(), flush=True)
@@ -5025,7 +5726,13 @@ def main() -> int:
                              "centernet_int8_predict (DIoU: the scan)":
                                  cn_int8_launches,
                              **{f"{k}: no NMS": v for k, v in dl.items()},
-                             **{f"{k}: no NMS": v for k, v in cls.items()}},
+                             **{f"{k}: no NMS": v for k, v in cls.items()},
+                             **{f"export {k} (B=8, K=512)": v for k, v in
+                                export["launches"].items()},
+                             "ddp: no NMS": ddp_launches,
+                             **scale_launches,
+                             "yolo7x_bench (K=4096: the scan)": y7x_launches,
+                             "ssd512_bench (B=64, K=1024)": ssd512_launches},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

@@ -23,6 +23,14 @@ The training step has no kernel of its own; its tests at the end hold the
 card against the CPU: the TAL top-k's lowest-index tie order and the
 assignment bit-equal, one f32 step within the CPU tests' bounds against
 tpucv, and the bf16 step finite.
+
+The NMS as the ``tpucv::nms_keep`` operator: called directly and inside
+``torch.compile`` it launches the kernel (counted) with the plain keep
+mask; YOLOv8n's program exported and reloaded on the card gives the eager
+detections bit for bit with one launch a call, and the int8 model's
+served forward under bf16 autocast its raw maps; and two ranks over gloo on
+the one card (``torch_dp_workers.py``) take the one-process step on the
+global batch within the CPU tests' bounds (``test_torch_parallel.py``).
 """
 
 import copy
@@ -1093,3 +1101,82 @@ def test_cls_train_step_on_the_card_equals_the_cpu(name, no_tf32):
     for k in csd:
         if csd[k].is_floating_point():
             assert float((gsd[k] - csd[k]).abs().max()) <= 2.1e-3, k
+
+
+# ------------------------------------------- the operator, export and DP
+def test_nms_keep_operator_and_compile_launch_the_kernel():
+    sb, ss, thr = _sorted_cuda(next(iter(CASES)))
+    before = nms_keep.launches
+    keep = torch.ops.tpucv.nms_keep(sb, ss, thr)
+    compiled = torch.compile(lambda b, s: nms_keep(b, s, thr),
+                             fullgraph=True)
+    again = compiled(sb, ss)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == before + 2
+    ref = nms_keep_reference(sb.cpu(), ss.cpu(), thr)
+    assert torch.equal(keep.cpu(), ref) and torch.equal(again.cpu(), ref)
+
+
+def test_exported_program_on_the_card_is_eager():
+    from tpucv_torch import deploy
+    from tpucv_torch.bench import inference_program, yolo8n
+
+    model = yolo8n(torch.device("cuda"))
+    with torch.no_grad():
+        for lv in range(3):
+            model.model[22].cv3[lv][2].weight.mul_(3000.0)
+            model.model[22].cv3[lv][2].bias.zero_()
+    _, program = inference_program(model, 64, amp=True)
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, (2, 48, 64, 3), dtype=np.uint8)).cuda()
+    with torch.inference_mode():
+        ref = program(x)
+    loaded = deploy.load_serialized(deploy.export_serialized(program, x))
+    before = nms_keep.launches
+    with torch.inference_mode():
+        got = loaded(x)
+    torch.cuda.synchronize()
+    assert nms_keep.launches == before + 1
+    assert int(ref[3].sum()) > 0
+    for a, b in zip(ref, got):
+        assert torch.equal(a, b)
+
+
+def test_exported_int8_forward_under_autocast_on_the_card():
+    """The int8 YOLOv8n's served forward under CUDA's bf16 autocast: its
+    artifact runs once loaded, raw maps bit-equal to eager."""
+    from tpucv_torch import deploy, quant
+    from tpucv_torch.bench import inference_program, prep, yolo8n
+
+    model = yolo8n(torch.device("cuda"))
+    x = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 255, (2, 48, 64, 3), dtype=np.uint8)).cuda()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        q = quant.quantize_for_inference(model, [prep(x, 64, True)])
+    fwd, _ = inference_program(q, 64, amp=True)
+    with torch.no_grad():
+        eager = fwd(x)
+        got = deploy.load_serialized(deploy.export_serialized(fwd, x))(x)
+    for a, b in zip(got, eager):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+def test_two_rank_gloo_step_on_the_card(tmp_path):
+    import torch_dp_workers as W
+
+    runs = [("bn", "mse", 1, False, 1), ("wide", "mse", 1, True, 3)]
+    ranks = W.Ranks(W.case_tiny, 2, tmp_path, runs=runs,
+                    device="cuda:0").results()
+    torch.backends.cudnn.allow_tf32 = False
+    for net, loss, G, zero, steps in runs:
+        make, cin = W.NETS[net]
+        _, ref = W.run_steps(make(), {k: v.cuda() for k, v in W.local(
+            W.tiny_batch(cin=cin), slice(None)).items()}, W.LOSSES[loss],
+            steps, device="cuda")
+        for rank in ranks:
+            got = rank[(net, loss, G, zero)][-1]
+            assert got["metrics"]["loss"] == pytest.approx(
+                ref[-1]["metrics"]["loss"], rel=1e-6)
+            for k, v in ref[-1]["sd"].items():
+                torch.testing.assert_close(got["sd"][k], v, rtol=0,
+                                           atol=1e-6)

@@ -36,8 +36,8 @@ metrics unrounded. Held:
 
 The port alone, at B=8 (8 steps an epoch): 2 epochs in one run equal 1
 epoch, a resume and 1 more epoch exactly; a NaN loss writes
-``-diverged.ckpt`` and raises; ``n_model`` > 1 and ``zero_opt`` are
-refused by name; ``eval_map`` logs ``map50``, scored on the EMA weights;
+``-diverged.ckpt`` and raises; ``n_model`` > 1 is refused by name, and
+``zero_opt`` in one process (no process group) trains with plain Adam; ``eval_map`` logs ``map50``, scored on the EMA weights;
 ``python -m tpucv_torch.train``'s ``main`` trains a step; ``python -m tpucv_torch.serve`` serves a request
 from a bundle the trainer saved.
 """
@@ -298,10 +298,20 @@ def test_nan_loss_saves_diverged_checkpoint_and_raises(tmp_path):
 
 
 @pytest.mark.parametrize("setting,value,item", [
-    ("n_model", 2, "item 14"), ("zero_opt", True, "item 14")])
+    ("n_model", 2, "item 14")])
 def test_unported_settings_refused_by_name(tmp_path, setting, value, item):
-    with pytest.raises(NotImplementedError, match=f"{setting}.*{item}"):
+    with pytest.raises(NotImplementedError, match=f"{setting}.*{item}b"):
         port_trainer(tmp_path, **{setting: value})
+
+
+def test_zero_opt_in_one_process_is_plain_adam(tmp_path):
+    """Without a process group ZeRO-1 has one rank to partition over: the
+    trainer keeps plain Adam, and its run equals one without zero_opt."""
+    zero = port_trainer(tmp_path / "zero", zero_opt=True)
+    assert type(zero.state.optimizer) is torch.optim.Adam
+    plain = port_trainer(tmp_path / "plain")
+    assert_states_equal(everything(plain.train(max_steps=2)),
+                        everything(zero.train(max_steps=2)))
 
 
 def test_eval_map_run_logs_map50(tmp_path):

@@ -31,8 +31,9 @@ Prints one JSON line with ``bench.py``'s keys:
   Where the native library is unavailable (it needs libjpeg's headers to
   build) the four stay null and ``notes`` says why.
 
-``--model ssd|centernet|yolo7|deeplabv3plus`` runs ``bench.py:
-bench_family`` instead, the headline left as it is: the registered
+``--model ssd|centernet|yolo7|deeplabv3plus`` (or ``yolo7x`` / ``ssd512``,
+the shipped YOLOv7-x and SSD512 at their family's batches) runs
+``bench.py:bench_family`` instead, the headline left as it is: the registered
 algorithm's own uint8 inference function (``make_infer_fn``) on two
 device-resident batches, 20 timed calls, and ``train.state``'s step
 (Adam 1e-3, EMA 0.9999, bf16 autocast) on a batch made on the device,
@@ -41,6 +42,18 @@ device-resident batches, 20 timed calls, and ``train.state``'s step
 32 GT rows an image. One JSON line: ``{name}_{S}_e2e_images_per_sec_per_
 chip`` (``per_cpu`` with ``--device cpu``), ``infer_batch``,
 ``train_img_per_sec``, ``train_step_ms`` and ``train_batch``.
+
+``--scale s|m|l|x`` runs ``bench.py:bench_scale`` instead: YOLOv8 at a
+wider scale (the registered yolo8_det config with ``arch.model_type`` set),
+the headline's program (uint8 480x640 -> ``letterbox_static`` ->
+normalize -> forward under bf16 autocast -> ``decode_boxes`` with
+``pre_nms_topk`` 512, whose NMS launches ``nms_keep``) on two
+device-resident batches, 20 timed calls, then the headline's step (Adam
+1e-3, EMA 0.9999, 32 GT rows an image) at 640², 15 timed steps, at
+tpucv's batches (inference 64 / 32 / 32 / 16, training 64 / 32 / 16 / 8).
+One JSON line with ``bench_scale``'s keys: ``yolov8{scale}_640_e2e_
+images_per_sec_per_chip``, ``infer_batch``, ``train_img_per_sec``,
+``train_step_ms``, ``train_batch``, and the port's ``device``.
 
 Card times come from CUDA events around many calls after warm-up
 (``probes.common.timed``); the train step's split into stages from the
@@ -396,7 +409,10 @@ def family_batch(name: str, cfg, B: int, S: int, dev: torch.device,
     ``torch.Generator``: images uniform in [0, 1); DeepLab's labels uniform
     over its classes, a classifier's one label an image, the detectors'
     ``FAMILY_GT_ROWS`` GT rows of boxes uniform in [0, 0.45 S) (some
-    inverted, as there), every row real."""
+    inverted, as there), every row real, labels uniform over the object
+    classes. SSD's ``num_classes`` counts its background, so its labels
+    stop one short of it: tpucv draws them up to ``num_classes``, and its
+    gather clamps the class one past the end where the port's raises."""
     g = torch.Generator(device=dev).manual_seed(seed)
     images = torch.rand((B, S, S, 3), generator=g, device=dev).to(
         images_dtype)
@@ -410,6 +426,8 @@ def family_batch(name: str, cfg, B: int, S: int, dev: torch.device,
                 "labels": torch.randint(0, nc, (B,), generator=g,
                                         device=dev, dtype=torch.int32)}
     M = FAMILY_GT_ROWS
+    if name == "ssd":
+        nc -= 1
     return {"images": images,
             "gt_labels": torch.randint(0, nc, (B, M), generator=g,
                                        device=dev, dtype=torch.int32),
@@ -418,14 +436,35 @@ def family_batch(name: str, cfg, B: int, S: int, dev: torch.device,
             "gt_mask": torch.ones((B, M), dtype=torch.bool, device=dev)}
 
 
+# the shipped variants beside each family's registered config: the name
+# their bench line carries, the family and the config fields they set
+VARIANTS = {"yolo7x": ("yolo7", {"arch.phi": "x"}),
+            "ssd512": ("ssd", {"arch.input_size": 512,
+                               "dataset.input_size": 512})}
+
+
+def configured(name: str):
+    """``export_from_registry`` for a family or one of ``VARIANTS``: (the
+    family's name, its config with the variant's fields set, the algorithm
+    class)."""
+    family, fields = VARIANTS.get(name, (name, {}))
+    cfg, algo_cls, _ = export_from_registry(family)
+    for path, value in fields.items():
+        section, field = path.split(".")
+        setattr(getattr(cfg, section), field, value)
+    return family, cfg, algo_cls
+
+
 def bench_family(name: str, dev: torch.device,
                  small: bool = False) -> Dict[str, object]:
-    """``bench.py:bench_family`` for one of ``FAMILY_BATCHES``' families:
-    its inference function and its train step, timed with
-    ``probes.common.timed`` (CUDA events on the card). ``small``: batch 2
-    and a small input (SSD keeps 300, its priors' size; DeepLab on
+    """``bench.py:bench_family`` for one of ``FAMILY_BATCHES``' families,
+    or one of their shipped ``VARIANTS`` (YOLOv7-x, SSD512) at the
+    family's batches: its inference function and its train step, timed
+    with ``probes.common.timed`` (CUDA events on the card). ``small``:
+    batch 2 and a small input (SSD keeps its priors' size; DeepLab on
     ResNet-50), 2 calls each, for a run on the CPU."""
-    cfg, algo_cls, _ = export_from_registry(name)
+    label = name
+    name, cfg, algo_cls = configured(name)
     amp = dev.type == "cuda"
     cfg.train.mixed_precision = amp
     seg = name == "deeplabv3plus"
@@ -465,7 +504,74 @@ def bench_family(name: str, dev: torch.device,
     if not np.isfinite(loss):
         raise RuntimeError(f"{name}: non-finite training loss {loss}")
     where = "chip" if dev.type == "cuda" else "cpu"
-    return {"metric": f"{name}_{S}_e2e_images_per_sec_per_{where}",
+    return {"metric": f"{label}_{S}_e2e_images_per_sec_per_{where}",
+            "value": B_inf * 1e3 / ms, "unit": "img/s",
+            "infer_batch": B_inf,
+            "train_img_per_sec": B_tr * 1e3 / step_ms,
+            "train_step_ms": step_ms, "train_batch": B_tr,
+            "train_loss": loss, "device": card(dev)}
+
+
+# bench.py:bench_scale's batches: (inference, training)
+SCALE_BATCHES = {"s": (64, 64), "m": (32, 32), "l": (32, 16), "x": (16, 8)}
+SCALE_ITERS = (20, 15)            # timed inference calls, timed steps
+
+
+def scale_algo(scale: str, dev: torch.device, size: Optional[int] = None):
+    """The registered yolo8_det algorithm at YOLOv8 scale ``scale``
+    (``size``: its input, else the config's 640)."""
+    cfg, algo_cls, _ = export_from_registry("yolo8_det")
+    cfg.arch.model_type = scale
+    if size is not None:
+        cfg.dataset.input_size = size
+    return algo_cls(cfg, device=dev)
+
+
+def bench_scale(scale: str, dev: torch.device,
+                small: bool = False) -> Dict[str, object]:
+    """``bench.py:bench_scale``: the headline's inference program and
+    train step for YOLOv8 at ``scale``, timed with
+    ``probes.common.timed`` (CUDA events on the card). ``small``: batch 2
+    at 64² (uint8 48x64), 2 calls each, for a run on the CPU."""
+    B_inf, B_tr = SCALE_BATCHES[scale]
+    n_inf, n_tr = SCALE_ITERS
+    shapes = FULL
+    if small:
+        B_inf = B_tr = n_inf = n_tr = 2
+        shapes = SMALL
+    S = shapes.size
+    amp = dev.type == "cuda"
+    algo = scale_algo(scale, dev, S)
+    model = algo.init_variables(seed=0)
+    _, program = inference_program(model, S, amp)
+    rng = np.random.default_rng(0)
+    resident = [torch.from_numpy(rng.integers(
+        0, 255, (B_inf, shapes.height, shapes.width, 3),
+        dtype=np.uint8)).to(dev) for _ in range(2)]
+    n = itertools.count()
+    with torch.inference_mode():
+        ms = timed(lambda: program(resident[next(n) % 2]), n_inf, dev)
+    del resident
+
+    state = TrainState.from_config(model, OPTIMIZER)
+    step = make_train_step(algo.build_loss(), device=dev,
+                           ema_decay=OPTIMIZER.ema_decay,
+                           mixed_precision=amp)
+    batch = synthetic_batch(B_tr, S, shapes.max_boxes, dev,
+                            shapes.box_scale,
+                            torch.bfloat16 if amp else torch.float32)
+    last = {}
+
+    def one():
+        nonlocal state, last
+        state, last = step(state, batch)
+
+    step_ms = timed(one, n_tr, dev)
+    loss = float(last["loss"])
+    if not np.isfinite(loss):
+        raise RuntimeError(f"yolov8{scale}: non-finite training loss {loss}")
+    where = "chip" if dev.type == "cuda" else "cpu"
+    return {"metric": f"yolov8{scale}_{S}_e2e_images_per_sec_per_{where}",
             "value": B_inf * 1e3 / ms, "unit": "img/s",
             "infer_batch": B_inf,
             "train_img_per_sec": B_tr * 1e3 / step_ms,
@@ -479,11 +585,21 @@ def main(argv: Optional[list] = None) -> Dict[str, object]:
                    help="cuda (default) or cpu")
     p.add_argument("--small", action="store_true",
                    help="tiny shapes, for a run on the CPU")
-    p.add_argument("--model", default=None, choices=sorted(FAMILY_BATCHES),
-                   help="per-family bench (bench.py:bench_family) instead "
-                        "of the YOLOv8 headline")
+    which = p.add_mutually_exclusive_group()
+    which.add_argument("--scale", default=None, choices=sorted(SCALE_BATCHES),
+                       help="YOLOv8 scale variant (bench.py:bench_scale) "
+                            "instead of the n headline")
+    which.add_argument("--model", default=None,
+                       choices=sorted(FAMILY_BATCHES) + sorted(VARIANTS),
+                       help="per-family bench (bench.py:bench_family) "
+                            "instead of the YOLOv8 headline; yolo7x and "
+                            "ssd512 are YOLOv7-x and SSD512")
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.scale:
+        line = bench_scale(args.scale, dev, args.small)
+        print(json.dumps(line), flush=True)
+        return line
     if args.model:
         line = bench_family(args.model, dev, args.small)
         print(json.dumps(line), flush=True)

@@ -4,7 +4,14 @@ The bundle is the whole train state, as tpucv's is: the model's
 ``state_dict`` (parameters and BatchNorm buffers), Adam's ``state_dict``,
 the EMA of the parameters (or None) and the step. It is written with
 ``torch.save`` to a temporary file that ``os.replace`` moves into place, so
-a reader never sees half a file. ``load_pure`` returns the model weights
+a reader never sees half a file.
+
+Under data parallelism every rank calls ``save`` (it is collective when the
+Adam moments are ZeRO-partitioned: they are consolidated on rank 0 first)
+and rank 0 alone writes. The bundle is always the replicated one, a plain
+``torch.optim.Adam`` state, so a checkpoint saved under W ranks, with or
+without ZeRO, resumes in one process, and the other way round; ``load``
+into a ZeRO optimizer keeps this rank's share of the moments. ``load_pure`` returns the model weights
 alone, from a bundle or from a bare ``state_dict``, as tpucv's does.
 """
 
@@ -41,13 +48,40 @@ def _weights(raw: Any) -> StateDict:
     return raw
 
 
+def replicated_optimizer_state(optimizer) -> Optional[Dict[str, Any]]:
+    """The optimizer's ``state_dict`` as a replicated ``torch.optim.Adam``
+    gives it. A ZeRO optimizer's moments are consolidated on rank 0 (a
+    collective: every rank calls this), whose state it returns with the
+    inner Adam's group keys; the other ranks get None."""
+    from tpucv_torch.parallel import mesh as pmesh
+    from tpucv_torch.parallel.multihost import is_primary
+
+    if not pmesh.is_zero(optimizer):
+        return optimizer.state_dict()
+    optimizer.consolidate_state_dict(to=0)
+    if not is_primary():
+        return None
+    sd = optimizer.state_dict()
+    keys = {k: v for k, v in optimizer.optim.param_groups[0].items()
+            if k != "params"}
+    groups = [{**keys, "lr": g["lr"], "params": g["params"]}
+              for g in sd["param_groups"]]
+    return {"state": sd["state"], "param_groups": groups}
+
+
 class CheckPoint:
     @staticmethod
     def save(state, path: str) -> str:
-        """Write ``state`` (a ``train.state.TrainState``) as one bundle."""
+        """Write ``state`` (a ``train.state.TrainState``) as one bundle, on
+        rank 0 alone; every rank of a data-parallel run calls it."""
+        from tpucv_torch.parallel.multihost import is_primary
+
+        optimizer = replicated_optimizer_state(state.optimizer)
+        if not is_primary():
+            return path
         return _atomic_save({
             "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "optimizer": optimizer,
             "ema": state.ema,
             "step": state.step,
         }, path)

@@ -16,6 +16,10 @@ batch is a plain stack. Two prefetch engines:
 
 The yielded arrays are valid until the next ``__next__`` call (the trainer
 copies them to the device at once); pass ``copy_batches=True`` to detach.
+
+``take_rows(rows)`` makes the loader build and yield only those rows of
+each batch: a data-parallel rank's share (``parallel.mesh.DataMesh.rows``),
+so no rank decodes the others' samples.
 Workers run numpy/cv2 dataset code only; they must never touch CUDA.
 """
 
@@ -69,6 +73,29 @@ def _reseed(ds, seed: int, epoch: int, batch_idx: int):
             (seed * 1000003 + epoch) * 1000003 + batch_idx)
 
 
+def _reseed_sample(ds, seed: int, epoch: int, batch_idx: int, row: int):
+    """A stream of its own for each row of each batch: one rank's rows are
+    then built without running the draws of the rows before them."""
+    if hasattr(ds, "_rng"):
+        ds._rng = np.random.default_rng((seed, epoch, batch_idx, row))
+
+
+def _build_batch(ds, order, bs: int, b: int, rows, collate, seed: int,
+                 epoch: int) -> Dict[str, np.ndarray]:
+    """Batch ``b`` of the epoch's ``order``: every sample, the augmentation
+    stream reseeded once for the batch; or, with ``rows``, only those rows,
+    the stream reseeded for each (``_reseed_sample``)."""
+    idxs = order[b * bs:(b + 1) * bs]
+    if rows is None:
+        _reseed(ds, seed, epoch, b)
+        return collate([ds[int(i)] for i in idxs])
+    samples = []
+    for r in rows:
+        _reseed_sample(ds, seed, epoch, b, int(r))
+        samples.append(ds[int(idxs[r])])
+    return collate(samples)
+
+
 class _ShmSlot:
     """One shared-memory batch slot: a dict of fixed-shape arrays."""
 
@@ -109,7 +136,7 @@ class _ShmSlot:
                 pass
 
 
-def _mp_worker(ds, order, bs, wid, nw, n_batches, slot_names, spec,
+def _mp_worker(ds, order, bs, rows, wid, nw, n_batches, slot_names, spec,
                collate, seed, epoch, free_q, res_q, stop_ev):
     slots = [_ShmSlot(spec, name) for name in slot_names]
     try:
@@ -122,9 +149,8 @@ def _mp_worker(ds, order, bs, wid, nw, n_batches, slot_names, spec,
                     break
                 except queue.Empty:
                     continue
-            _reseed(ds, seed, epoch, b)
-            idxs = order[b * bs:(b + 1) * bs]
-            n = slots[s].write(collate([ds[int(i)] for i in idxs]))
+            n = slots[s].write(_build_batch(ds, order, bs, b, rows, collate,
+                                            seed, epoch))
             res_q.put((b, s, n))
     finally:
         for s in slots:
@@ -146,6 +172,7 @@ class Loader:
         self.num_workers = num_workers
         self.copy_batches = copy_batches
         self.epoch = 0
+        self.rows: Optional[np.ndarray] = None
         self._spec = None
 
     def __len__(self):
@@ -157,6 +184,17 @@ class Loader:
         if hasattr(self.ds, "set_epoch"):
             self.ds.set_epoch(epoch)
 
+    def take_rows(self, rows) -> None:
+        """Build and yield only ``rows`` of each (full) batch. A dataset
+        whose augmentation draws from one stream a batch (``_rng``) is then
+        reseeded for each row of each batch, so the rows a rank builds are
+        the same whatever the world size, though not those of the
+        one-process stream, whose draws run on through the batch."""
+        if not self.drop_last:
+            raise ValueError("take_rows needs drop_last: every batch full")
+        self.rows = np.asarray(rows)
+        self._spec = None
+
     def _order(self) -> np.ndarray:
         order = np.arange(len(self.ds))
         if self.shuffle:
@@ -164,9 +202,8 @@ class Loader:
         return order
 
     def _make_batch(self, order, b: int) -> Dict[str, np.ndarray]:
-        _reseed(self.ds, self.seed, self.epoch, b)
-        idxs = order[b * self.bs:(b + 1) * self.bs]
-        return self.collate([self.ds[int(i)] for i in idxs])
+        return _build_batch(self.ds, order, self.bs, b, self.rows,
+                            self.collate, self.seed, self.epoch)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if self.num_workers > 0:
@@ -214,7 +251,8 @@ class Loader:
     def _batch_spec(self) -> Dict[str, Tuple[tuple, np.dtype]]:
         if self._spec is None:
             one = self.collate([self.ds[0]])
-            self._spec = {k: ((self.bs,) + v.shape[1:], v.dtype)
+            n = self.bs if self.rows is None else len(self.rows)
+            self._spec = {k: ((n,) + v.shape[1:], v.dtype)
                           for k, v in one.items()}
         return self._spec
 
@@ -250,7 +288,7 @@ class Loader:
         procs = [
             ctx.Process(
                 target=_mp_worker,
-                args=(self.ds, order, self.bs, w, nw, n_batches,
+                args=(self.ds, order, self.bs, self.rows, w, nw, n_batches,
                       [s.shm.name for s in slots[w]], spec, self.collate,
                       self.seed, self.epoch, free_qs[w], res_qs[w], stop_ev),
                 daemon=True)

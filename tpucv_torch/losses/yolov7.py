@@ -23,7 +23,7 @@ with the f32 reciprocal, as XLA compiles tpucv's.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,7 +70,8 @@ def _recip(x) -> float:
 def _assign(preds, pred_boxes, gt_bboxes, gt_labels, gt_mask, feat_shapes,
             strides, anchors, offs, nc, anchor_t, max_dynamic_k):
     """simOTA over the static slates -> (matched (B, A) bool, the GT row
-    of each anchor (B, A) int64, 0 where unmatched)."""
+    of each anchor (B, A) int64, 0 where unmatched, the cost of each GT's
+    slate (B, M, K) f32, and the anchor of each slate entry (B, M, K))."""
     B, A = preds.shape[:2]
     M = gt_labels.shape[1]
     na = anchors.shape[1]
@@ -148,7 +149,46 @@ def _assign(preds, pred_boxes, gt_bboxes, gt_labels, gt_mask, feat_shapes,
         1, w_idx, torch.where(fin, pos, torch.full_like(pos, -1)), "amax",
         include_self=True)[:, :A]
     matched = last >= 0
-    return matched, torch.where(matched, last // K, torch.zeros_like(last))
+    return (matched, torch.where(matched, last // K, torch.zeros_like(last)),
+            cost, cand_flat)
+
+
+def _predictions(raw_maps, strides, anchors, nc):
+    """The raw maps flattened to (B, A, 5+nc) f32 predictions, their
+    decoded xyxy boxes (B, A, 4), each level's offset and the map
+    shapes."""
+    B = raw_maps[0].shape[0]
+    feat_shapes = tuple((int(m.shape[1]), int(m.shape[2])) for m in raw_maps)
+    (cx, cy, aw, ah, st), offs = _flat_geometry(
+        feat_shapes, tuple(strides),
+        tuple(tuple(map(tuple, lvl)) for lvl in np.asarray(anchors).tolist()),
+        torch.device(raw_maps[0].device))
+    preds = torch.cat([m.reshape(B, -1, 5 + nc) for m in raw_maps],
+                      1).float()                              # (B, A, 5+nc)
+
+    sig = torch.sigmoid(preds[..., :4])
+    px = (sig[..., 0] * 2.0 - 0.5 + cx) * st
+    py = (sig[..., 1] * 2.0 - 0.5 + cy) * st
+    pw = (sig[..., 2] * 2.0) ** 2 * aw
+    ph = (sig[..., 3] * 2.0) ** 2 * ah
+    pred_boxes = torch.stack(
+        [px - pw / 2, py - ph / 2, px + pw / 2, py + ph / 2], -1)
+    return preds, pred_boxes, offs, feat_shapes
+
+
+def simota_assign(raw_maps, gt_bboxes, gt_labels, gt_mask, anchors,
+                  strides=(8, 16, 32), nc=20, anchor_t=4.0,
+                  max_dynamic_k=20):
+    """``yolov7_loss``'s assignment of the same arguments: (matched (B, A)
+    bool, the GT row of each anchor (B, A), each GT's slate costs (B, M,
+    K) and the anchor of each slate entry (B, M, K)). A check reads the
+    slates to tell an assignment that two devices part on by a tie of
+    costs from one they part on otherwise."""
+    preds, pred_boxes, offs, feat_shapes = _predictions(
+        raw_maps, strides, anchors, nc)
+    return _assign(preds, pred_boxes, gt_bboxes.float(), gt_labels,
+                   gt_mask.bool(), feat_shapes, strides, anchors, offs, nc,
+                   anchor_t, max_dynamic_k)
 
 
 def yolov7_loss(
@@ -165,6 +205,7 @@ def yolov7_loss(
     layer_balance: Sequence[float] = (4.0, 1.0, 0.4),
     anchor_t: float = 4.0,
     max_dynamic_k: int = 20,
+    assignment: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The YOLOv7 training loss.
 
@@ -172,6 +213,9 @@ def yolov7_loss(
       raw_maps: per-level NHWC (B, H, W, na*(5+nc)) raw head outputs.
       gt_bboxes: (B, M, 4) xyxy in input pixels; gt_labels: (B, M) int;
       gt_mask: (B, M) bool. anchors: (nl, na, 2) in pixels.
+      assignment: (matched, GT row) of ``simota_assign`` to use in place
+        of this call's own, so that a check can hold two devices' terms
+        on one assignment.
     Returns:
       (total, {box_loss, obj_loss, cls_loss, num_match}). Box and class
       terms are per-layer means summed over the layers; objectness is the
@@ -180,27 +224,16 @@ def yolov7_loss(
     """
     B = raw_maps[0].shape[0]
     dev = raw_maps[0].device
-    feat_shapes = tuple((int(m.shape[1]), int(m.shape[2])) for m in raw_maps)
-    (cx, cy, aw, ah, st), offs = _flat_geometry(
-        feat_shapes, tuple(strides),
-        tuple(tuple(map(tuple, lvl)) for lvl in np.asarray(anchors).tolist()),
-        torch.device(dev))
-    preds = torch.cat([m.reshape(B, -1, 5 + nc) for m in raw_maps],
-                      1).float()                              # (B, A, 5+nc)
-
-    sig = torch.sigmoid(preds[..., :4])
-    px = (sig[..., 0] * 2.0 - 0.5 + cx) * st
-    py = (sig[..., 1] * 2.0 - 0.5 + cy) * st
-    pw = (sig[..., 2] * 2.0) ** 2 * aw
-    ph = (sig[..., 3] * 2.0) ** 2 * ah
-    pred_boxes = torch.stack(
-        [px - pw / 2, py - ph / 2, px + pw / 2, py + ph / 2], -1)
+    preds, pred_boxes, offs, feat_shapes = _predictions(
+        raw_maps, strides, anchors, nc)
 
     gt_bboxes = gt_bboxes.float()
-    matched, gt_idx = _assign(
-        preds.detach(), pred_boxes.detach(), gt_bboxes, gt_labels,
-        gt_mask.bool(), feat_shapes, strides, anchors, offs, nc, anchor_t,
-        max_dynamic_k)
+    if assignment is None:
+        assignment = _assign(
+            preds.detach(), pred_boxes.detach(), gt_bboxes, gt_labels,
+            gt_mask.bool(), feat_shapes, strides, anchors, offs, nc,
+            anchor_t, max_dynamic_k)
+    matched, gt_idx = assignment[:2]
     tgt_boxes = torch.gather(gt_bboxes, 1, gt_idx[..., None].expand(-1, -1, 4))
     tgt_labels = torch.gather(gt_labels.long(), 1, gt_idx)
 

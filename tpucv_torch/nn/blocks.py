@@ -46,20 +46,53 @@ class BatchNorm2d(nn.BatchNorm2d):
     The variance comes back from the fused kernel's saved inverse standard
     deviation, ``var = invstd**-2 - eps``, so no extra pass reads the
     input. Eval mode, the keys and the ``state_dict`` are
-    ``nn.BatchNorm2d``'s."""
+    ``nn.BatchNorm2d``'s.
+
+    Under data parallelism (``set_data_parallel`` with a world of W > 1
+    ranks, each holding its rows of the global batch) the statistics are
+    the global batch's, as tpucv's are under a data mesh, where XLA reduces
+    across it: the per-channel sums and the count, then the sums of
+    squared deviations from the global mean, are all-reduced (in f32,
+    differentiably), and the global biased variance normalises and feeds
+    the running statistics."""
+
+    dp_world = 1            # ranks of the data mesh (set_data_parallel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self.dp_world > 1:
+            y, mean, var = self._global_batch_norm(x)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            var = None
         with torch.no_grad():
-            var = invstd.double().pow(-2).sub(self.eps).float()
+            if var is None:
+                var = invstd.double().pow(-2).sub(self.eps).float()
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor):
+        """(y, mean, biased var) over all ranks' rows of the batch."""
+        from tpucv_torch.parallel.mesh import all_reduce_sum as all_reduce
+
+        C = x.shape[1]
+        xf = x.float()
+        local = torch.cat([xf.sum((0, 2, 3)),
+                           xf.new_full((1,), x.numel() // C)])
+        total = all_reduce(local)
+        count = total[C]
+        mean = total[:C] / count
+        d = xf - mean[None, :, None, None]
+        var = all_reduce(d.square().sum((0, 2, 3))) / count
+        y = d * torch.rsqrt(var + self.eps)[None, :, None, None]
+        y = y * self.weight[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        return y.to(x.dtype), mean.detach(), var.detach()
 
 
 class StepDropout(nn.Module):
@@ -71,15 +104,24 @@ class StepDropout(nn.Module):
     1 / (1 - p), as flax's ``nn.Dropout`` does; eval mode is the
     identity."""
 
+    dp_world = 1            # ranks of the data mesh (set_data_parallel)
+    dp_rank = 0
+
     def __init__(self, p: float):
         super().__init__()
         self.p = p
         self.seed = 0
 
     def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
-        """The boolean keep mask of ``x``'s shape for the current seed."""
+        """The boolean keep mask of ``x``'s shape for the current seed.
+        Under data parallelism ``x`` holds this rank's rows of the global
+        batch: the mask is drawn for the global batch and this rank's rows
+        are taken, so it is the one a single process draws."""
         g = torch.Generator(device=x.device).manual_seed(self.seed)
-        return torch.rand(x.shape, generator=g, device=x.device) >= self.p
+        n = x.shape[0]
+        full = torch.rand((n * self.dp_world,) + tuple(x.shape[1:]),
+                          generator=g, device=x.device) >= self.p
+        return full[self.dp_rank * n:(self.dp_rank + 1) * n]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0:
@@ -93,6 +135,17 @@ def seed_dropout(model: nn.Module, seed: int) -> None:
     for m in model.modules():
         if isinstance(m, StepDropout):
             m.seed = seed
+
+
+def set_data_parallel(model: nn.Module, world: int, rank: int) -> None:
+    """Tell ``model``'s BatchNorms and dropouts that its train-mode input
+    is rank ``rank``'s rows of a global batch split over ``world`` ranks
+    (``world=1``: the whole batch, one process)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.dp_world = world
+        elif isinstance(m, StepDropout):
+            m.dp_world, m.dp_rank = world, rank
 
 
 class Int8Hooks:

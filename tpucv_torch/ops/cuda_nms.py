@@ -2,10 +2,15 @@
 counterpart of ``tpucv/ops/pallas_nms.py`` (``pallas_nms_keep`` and
 ``pallas_nms``, which launch the Pallas ``_nms_kernel``).
 
-``nms_keep`` is the kernels' wrapper: on a CUDA tensor it launches the
-mask build and the walk or raises; on a CPU tensor, and only there, it runs
-``nms_keep_reference``, the plain PyTorch version of the same function
-(the vectorised suppression-wave fixpoint of ``nms_fixpoint``).
+``nms_keep`` is the kernels' wrapper. It calls the PyTorch operator
+``tpucv::nms_keep`` (``torch.ops.tpucv.nms_keep``), so that
+``torch.export`` and ``torch.compile`` keep the call as one opaque node
+and an exported or compiled program launches the same kernels. On a CUDA
+tensor the operator launches the mask build and the walk or raises; on a
+CPU tensor, and only there, it runs ``nms_keep_reference``, the plain
+PyTorch version of the same function (the vectorised suppression-wave
+fixpoint of ``nms_fixpoint``). Importing ``tpucv_torch.ops`` registers
+the operator, which is all a loaded export artifact needs.
 ``cuda_nms`` is the ``pallas_nms``-shaped wrapper around it: sort (unless
 presorted), keep mask, top-``max_det`` selection.
 
@@ -216,15 +221,13 @@ def _launch(what: str, fn, dev: torch.device, *args) -> None:
                            f"{_lib().tpucv_cuda_error_string(err).decode()}")
 
 
-def nms_keep(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
-             iou_threshold: float = 0.45) -> torch.Tensor:
-    """Greedy keep mask (B, K) bool over score-sorted candidates.
-
-    CUDA tensors launch ``csrc/nms.cu``'s build and walk (K <= 1024) on
-    the current stream, over a scratch mask of ``nms_plan(B, K)``, and count
-    one launch a call in ``nms_keep.launches``; CPU tensors run
-    ``nms_keep_reference``. Any other input raises."""
-    _check(boxes_sorted, scores_sorted)
+@torch.library.custom_op("tpucv::nms_keep", mutates_args=())
+def _nms_keep_op(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
+                 iou_threshold: float) -> torch.Tensor:
+    """The operator's implementation: ``nms_keep_reference`` on a CPU
+    tensor; on a CUDA one the kernels' launch, counted in
+    ``nms_keep.launches`` here, where the launch happens, so an exported or
+    compiled program counts its launches too."""
     dev = boxes_sorted.device
     if dev.type == "cpu":
         return nms_keep_reference(boxes_sorted, scores_sorted, iou_threshold)
@@ -239,6 +242,25 @@ def nms_keep(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
             words.data_ptr(), keep.data_ptr(), B, K, float(iou_threshold))
     nms_keep.launches += 1
     return keep
+
+
+@_nms_keep_op.register_fake
+def _nms_keep_fake(boxes_sorted, scores_sorted, iou_threshold):
+    return scores_sorted.new_empty(scores_sorted.shape, dtype=torch.bool)
+
+
+def nms_keep(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor,
+             iou_threshold: float = 0.45) -> torch.Tensor:
+    """Greedy keep mask (B, K) bool over score-sorted candidates, through
+    the ``tpucv::nms_keep`` operator.
+
+    CUDA tensors launch ``csrc/nms.cu``'s build and walk (K <= 1024) on
+    the current stream, over a scratch mask of ``nms_plan(B, K)``, and count
+    one launch a call in ``nms_keep.launches``; CPU tensors run
+    ``nms_keep_reference``. Any other input raises."""
+    _check(boxes_sorted, scores_sorted)
+    return torch.ops.tpucv.nms_keep(boxes_sorted, scores_sorted,
+                                    float(iou_threshold))
 
 
 nms_keep.launches = 0

@@ -7,6 +7,16 @@ Runs on CUDA unless ``--device cpu`` is given; on a machine without CUDA
 it stops with an error rather than moving to the CPU. Checkpoints go to
 the config's ``train.save_path`` and logs to ``log.root``, both relative
 to the working directory.
+
+Data parallelism, one process a card, through torchrun:
+
+    torchrun --nproc_per_node=N -m tpucv_torch.train --model yolo8_det
+
+Each rank feeds its rows of the global ``--batch-size`` (which N must
+divide), and the step equals one process's step on the global batch
+(``train.state.make_train_step``); the config's ``train.zero_opt``
+partitions Adam's moments over the ranks (ZeRO-1). Rank 0 writes the logs
+and checkpoints.
 """
 
 from __future__ import annotations
@@ -26,8 +36,8 @@ def main(argv=None):
                         help="stop after N optimizer steps (smoke runs)")
     parser.add_argument("--n-model", type=int, default=None,
                         help="model-axis size of tpucv's (data, model) "
-                             "mesh; only 1 until the port's data "
-                             "parallelism lands")
+                             "mesh; only 1 (channel sharding is not "
+                             "ported: ROADMAP queue 1 item 14b)")
     parser.add_argument("--batch-size", type=int, default=None,
                         help="override cfg.train.batch_size")
     parser.add_argument("--device", type=str, default="cuda",

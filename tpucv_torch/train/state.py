@@ -9,10 +9,19 @@ trainable parameters with optax's defaults, and an EMA copy of those
 parameters. On CUDA the forward runs under bf16 autocast, on the NHWC
 images (a ``channels_last`` view for the network); the loss runs in f32.
 No GradScaler: the step is bf16.
+
+Data parallelism (``parallel.mesh``): under a world of W > 1 ranks the
+step takes this rank's rows of the global batch (``DataMesh.rows``), runs
+the network on them with global-batch BatchNorm, gathers the head's
+outputs and the targets of every rank, runs the loss on the global batch,
+and sums the gradients over the ranks, so that it equals one
+process's step on the global batch. ``TrainState.create(zero_opt=True)``
+partitions Adam's moments over the ranks (ZeRO-1).
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -20,7 +29,8 @@ from torch import nn
 
 from tpucv_torch.algorithms.base import resolve_device
 from tpucv_torch.configs.base import OptimizerCfg
-from tpucv_torch.nn.blocks import seed_dropout
+from tpucv_torch.nn.blocks import seed_dropout, set_data_parallel
+from tpucv_torch.parallel import mesh as pmesh
 from tpucv_torch.train.schedules import Schedule, warmup_multistep
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -47,36 +57,42 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, lr: Union[float, Schedule] = 1e-3,
-               use_ema: bool = False,
-               weight_decay: float = 0.0) -> "TrainState":
+               use_ema: bool = False, weight_decay: float = 0.0,
+               zero_opt: bool = False) -> "TrainState":
         """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8); ``lr``
         is a constant or a ``step -> lr`` schedule (``train.schedules``).
         ``weight_decay`` adds ``wd * p`` to each gradient before Adam, as
         ``optax.chain(optax.add_decayed_weights(wd), optax.adam(lr))``
-        does."""
+        does. ``zero_opt``: ZeRO-1, the moments partitioned over the ranks
+        of the process group (``parallel.mesh.zero_adam``)."""
         schedule = lr if callable(lr) else (lambda step: lr)
         params = [p for p in model.parameters() if p.requires_grad]
-        opt = torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999),
-                               eps=1e-8, weight_decay=weight_decay)
+        if zero_opt:
+            opt = pmesh.zero_adam(params, schedule(0), weight_decay)
+        else:
+            opt = torch.optim.Adam(params, lr=schedule(0),
+                                   betas=(0.9, 0.999), eps=1e-8,
+                                   weight_decay=weight_decay)
         ema = ({n: p.detach().clone() for n, p in model.named_parameters()
                 if p.requires_grad} if use_ema else None)
         return cls(model, opt, schedule, ema)
 
     @classmethod
     def from_config(cls, model: nn.Module, opt: OptimizerCfg,
-                    iters_per_epoch: int = 1) -> "TrainState":
+                    iters_per_epoch: int = 1,
+                    zero_opt: bool = False) -> "TrainState":
         """The optimizer of a config's ``optimizer`` section, as tpucv's
         trainer builds it (``set_optimizer``): Adam at ``warmup_multistep``
         of ``lr`` (milestones in epochs of ``iters_per_epoch`` steps) with
         ``weight_decay``, and an EMA when ``ema_decay`` > 0; the train
-        step takes ``opt.ema_decay``."""
+        step takes ``opt.ema_decay``. ``zero_opt`` as in ``create``."""
         if opt.name != "adam":
             raise ValueError(f"optimizer {opt.name!r}: only adam is ported")
         schedule = warmup_multistep(
             opt.lr, opt.warmup_iters,
             [m * iters_per_epoch for m in opt.milestones], opt.gamma)
         return cls.create(model, schedule, use_ema=opt.ema_decay > 0,
-                          weight_decay=opt.weight_decay)
+                          weight_decay=opt.weight_decay, zero_opt=zero_opt)
 
     def apply_gradients(self, ema_decay: float = 0.0) -> None:
         """One Adam update at ``schedule(step)`` from the gradients in the
@@ -112,7 +128,8 @@ def _no_lap(stage: str) -> None:
 
 def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
                     grad_accum: int = 1, loss_batch_scaled: bool = False,
-                    mixed_precision: Optional[bool] = None):
+                    mixed_precision: Optional[bool] = None,
+                    mesh: Optional[pmesh.DataMesh] = None):
     """Build ``step(state, batch) -> (state, metrics)``.
 
     ``batch`` holds ``images`` (B, H, W, 3) and whatever ``loss_fn`` reads;
@@ -136,6 +153,19 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
     ``state.step * G + i`` in micro-batch ``i``: a function of the step,
     as tpucv's ``fold_in(PRNGKey(0), step)`` is.
 
+    ``mesh``: a ``parallel.mesh.DataMesh`` of W > 1 ranks makes this the
+    data-parallel step. ``batch`` is then this rank's rows of the global
+    batch (``mesh.rows(B, grad_accum)``: its share of each micro-batch, in
+    micro-batch order). Each micro-batch's forward runs on those rows with
+    global-batch BatchNorm and dropout masks; the head's outputs and the
+    targets of all ranks are gathered, the loss runs on the global
+    micro-batch, and after the backward the gradients (each rank's rows'
+    share of the global gradient) are summed over the ranks. Losses,
+    gradients, parameters, BatchNorm statistics and the EMA are then those
+    of one process's step on the global batch, up to f32 rounding (the
+    sums run in another order). Without ``mesh``, or with
+    one rank, the step is the one-process step, unchanged.
+
     ``step(state, batch, lap)`` calls ``lap(stage)`` as each stage ends:
     ``forward`` (the batch's move and ``zero_grad`` included), ``loss``,
     ``backward`` (each once a micro-batch) and ``optimizer_ema``. The
@@ -143,10 +173,15 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
     """
     dev = resolve_device(device)
     amp = dev.type == "cuda" if mixed_precision is None else mixed_precision
+    dp = mesh is not None and mesh.parallel
+    marked = weakref.WeakSet()      # models set_data_parallel has seen
 
     def compute(model, mb, lap, seed):
         seed_dropout(model, seed)
         raw = forward(model, mb["images"], amp)
+        if dp:
+            raw = pmesh.gather_rows(raw, mesh)
+            mb = pmesh.gather_batch(mb, mesh)
         lap("forward")
         loss, metrics = loss_fn(raw, mb)
         lap("loss")
@@ -157,6 +192,9 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              lap: Callable[[str], None] = _no_lap):
         model = state.model.train()
+        if dp and model not in marked:
+            set_data_parallel(model, mesh.world, mesh.rank)
+            marked.add(model)
         batch = _to(batch, dev)
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum <= 1:
@@ -178,6 +216,8 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
                 loss = losses.mean()
             metrics = {k: torch.stack([m[k] for m in metricss]).mean()
                        for k in metricss[0]}
+        if dp:
+            pmesh.all_reduce_grads(state.params.values())
         state.apply_gradients(ema_decay)
         lap("optimizer_ema")
         metrics["loss"] = loss

@@ -5,9 +5,23 @@ Same skeleton: ``__init__`` wires set_model_algorithm -> load_data ->
 initialize_model -> set_optimizer -> set_criterion, ``train()`` owns the
 epoch loop, resume, periodic eval + checkpoint, file log + TensorBoard.
 Deltas from tpucv:
-  * one device, no mesh: ``train.n_model > 1`` and ``train.zero_opt`` wait
-    for the port's data parallelism (ROADMAP queue 1 item 14); each is
-    refused by name rather than ignored;
+  * the data axis is W processes (``torchrun --nproc_per_node=W -m
+    tpucv_torch.train ...``; ``parallel.multihost.initialize`` sets up the
+    process group from torchrun's environment, NCCL on CUDA, gloo on the
+    CPU), one rank a card (``cuda:LOCAL_RANK``). Each rank's train loader
+    builds only its rows of the seeded global batch (``DataMesh.rows``,
+    ``Loader.take_rows``: the host augmentation then draws from a stream
+    a row, the same under any world size > 1); the device augmentation's
+    parameters are drawn for the global batch and sliced the same way;
+    the step is ``make_train_step``'s data-parallel one, equal to one
+    process's step on the global batch, and
+    ``train.zero_opt`` partitions Adam's moments (ZeRO-1). Rank 0 alone
+    logs, writes TensorBoard and checkpoints and evaluates; the other
+    ranks wait at a barrier. tpucv shrinks its data axis to a divisor of
+    the batch; a torchrun world cannot shrink, so a world size that does
+    not divide the batch (and each micro-batch) is refused by name.
+    ``train.n_model > 1`` (channel sharding) is refused too, citing ROADMAP
+    queue 1 item 14b;
   * the train state is built once, in ``set_optimizer``, and a resume
     loads into it in place;
   * the device-augmentation seed is the global step, so a resumed run
@@ -25,11 +39,14 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpucv_torch.algorithms.base import resolve_device
 from tpucv_torch.ckpt.checkpoint import CheckPoint
 from tpucv_torch.ops.augment import AffineParams, augment_batch
 from tpucv_torch.ops.preprocess import normalize_images
+from tpucv_torch.parallel import multihost
+from tpucv_torch.parallel.mesh import DataMesh, rank_device
 from tpucv_torch.train.state import (TrainState, make_eval_step,
                                      make_train_step)
 
@@ -57,12 +74,12 @@ def _refuse_unported(cfg) -> None:
     if t.n_model > 1:
         raise NotImplementedError(
             f"train.n_model={t.n_model}: channel sharding over a model axis "
-            f"waits for the port's data parallelism (ROADMAP queue 1 item "
-            f"14); use n_model=1")
-    if t.zero_opt:
-        raise NotImplementedError(
-            "train.zero_opt: ZeRO-1 sharding of the Adam moments waits for "
-            "the port's data parallelism (ROADMAP queue 1 item 14)")
+            f"is not ported (ROADMAP queue 1 item 14b); use n_model=1")
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
 
 
 class BaseTrainer:
@@ -78,7 +95,13 @@ class BaseTrainer:
     def __init__(self, cfg, device="cuda"):
         _refuse_unported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        multihost.initialize()
+        self.mesh = DataMesh.current()
+        self.mesh.check_batch(cfg.train.batch_size,
+                              max(1, cfg.train.grad_accum))
+        self.device = resolve_device(rank_device(device))
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         self.compute_dtype = (torch.bfloat16 if cfg.train.mixed_precision
                               else torch.float32)
         self._aug_seed = 0
@@ -86,6 +109,9 @@ class BaseTrainer:
         # the loaders come before the model: nothing has touched CUDA yet
         self.set_model_algorithm()
         self.load_data()
+        if self.mesh.parallel:          # each rank builds only its rows
+            self.train_loader.take_rows(self.mesh.rows(
+                cfg.train.batch_size, max(1, cfg.train.grad_accum)))
         self.initialize_model()
         self.set_optimizer()
         self.set_criterion()
@@ -114,7 +140,8 @@ class BaseTrainer:
 
     def set_optimizer(self):
         self.state = TrainState.from_config(
-            self.model, self.cfg.optimizer, max(len(self.train_loader), 1))
+            self.model, self.cfg.optimizer, max(len(self.train_loader), 1),
+            zero_opt=self.cfg.train.zero_opt and dist.is_initialized())
         self.lr_schedule = self.state.schedule
 
     def set_criterion(self):
@@ -131,16 +158,17 @@ class BaseTrainer:
             self.loss_fn, device=self.device,
             ema_decay=self.cfg.optimizer.ema_decay, grad_accum=accum,
             loss_batch_scaled=self.LOSS_BATCH_SCALED,
-            mixed_precision=t.mixed_precision)
+            mixed_precision=t.mixed_precision, mesh=self.mesh)
 
     # ------------------------------------------------------- batch prep
     def device_batch(self, batch: Dict[str, np.ndarray],
                      train: bool = False) -> Dict[str, torch.Tensor]:
         """A host batch on the device, its images augmented (train, with
         ``device_aug``) or only normalised. Every array is copied before
-        this returns, so the loader may reuse its buffers at once."""
+        this returns, so the loader may reuse its buffers at once. Under
+        data parallelism a train batch holds this rank's rows of the global
+        one (``DataMesh.rows``, which the train loader takes)."""
         dev = self.device
-        host_aug = batch.get("host_aug")
         out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev, copy=True)
                for k, v in batch.items() if k != "host_aug"}
         use_dev_aug = (train and self.DEVICE_AUG and self.cfg.train.device_aug
@@ -149,8 +177,13 @@ class BaseTrainer:
             out["images"] = normalize_images(out["images"], self.compute_dtype)
             return out
         # the parameters are drawn on the host from numpy, as tpucv draws
-        # them, from a seed that counts the train batches
+        # them, from a seed that counts the train batches, for the global
+        # batch; this rank takes its rows of them
         B, S = batch["images"].shape[:2]
+        rows = slice(None)
+        if self.mesh.parallel:
+            B = self.cfg.train.batch_size
+            rows = self.mesh.rows(B, max(1, self.cfg.train.grad_accum))
         rng = np.random.default_rng(self._aug_seed)
         self._aug_seed += 1
         scale = rng.uniform(0.5, 1.5, B).astype(np.float32)
@@ -159,17 +192,18 @@ class BaseTrainer:
         flip = rng.random(B) < 0.5
         hsv = (1.0 + (rng.random((B, 3)) * 2 - 1)
                * np.array([0.1, 0.7, 0.4])).astype(np.float32)
-        if host_aug is not None:
+        scale, shift, flip, hsv = (a[rows] for a in (scale, shift, flip, hsv))
+        if batch.get("host_aug") is not None:
             # mosaic samples arrive fully augmented (incl. HSV) from the
             # host, like the reference's mosaic path: neutralise the device
             # affine/HSV so they are not augmented twice
-            ha = np.asarray(host_aug, bool)
+            ha = np.asarray(batch["host_aug"], bool)
             scale[ha] = 1.0
             shift[ha] = 0.0
             flip[ha] = False
             hsv[ha] = 1.0
-        params = AffineParams(*(torch.from_numpy(a).to(dev)
-                                for a in (scale, shift, flip, hsv)))
+        params = AffineParams(*(torch.from_numpy(np.ascontiguousarray(a))
+                                .to(dev) for a in (scale, shift, flip, hsv)))
         imgs, boxes = augment_batch(out["images"], out["gt_bboxes"], params,
                                     dtype=self.compute_dtype)
         out["images"] = imgs
@@ -191,11 +225,15 @@ class BaseTrainer:
         for h in self.logger.handlers:
             h.close()
         self.logger.handlers.clear()
+        self.tb = None
+        if not multihost.is_primary():       # rank 0 alone logs
+            self.logger.addHandler(logging.NullHandler())
+            self.logger.propagate = False
+            return
         fh = logging.FileHandler(log_path)
         fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
         self.logger.addHandler(fh)
         self.logger.addHandler(logging.StreamHandler())
-        self.tb = None
         if self.cfg.log.tensorboard_on:
             try:
                 from tensorboardX import SummaryWriter
@@ -271,14 +309,16 @@ class BaseTrainer:
                 f"epoch {epoch} done in {time.time() - t_ep:.1f}s "
                 f"(means over logged steps: {ep_means})")
             if (epoch + 1) % cfg.train.eval_interval == 0:
-                val = self.evaluate_loop(state)
-                if cfg.train.eval_map:
-                    val.update(self.evaluate_map(state))
-                self.last_eval = val
-                self.logger.info(f"eval epoch {epoch}: {val}")
-                if self.tb:
-                    for k, v in val.items():
-                        self.tb.add_scalar(f"val/{k}", v, global_step)
+                if multihost.is_primary():
+                    val = self.evaluate_loop(state)
+                    if cfg.train.eval_map:
+                        val.update(self.evaluate_map(state))
+                    self.last_eval = val
+                    self.logger.info(f"eval epoch {epoch}: {val}")
+                    if self.tb:
+                        for k, v in val.items():
+                            self.tb.add_scalar(f"val/{k}", v, global_step)
+                _barrier()
             if (epoch + 1) % cfg.train.save_interval == 0 or done:
                 path = self._ckpt_path(epoch)
                 CheckPoint.save(state, path)
@@ -288,6 +328,7 @@ class BaseTrainer:
         final = self._ckpt_path(cfg.train.epochs - 1, final=True)
         CheckPoint.save(state, final)
         self.logger.info(f"saved final {final}")
+        _barrier()                # the file is there before any rank returns
         return state
 
     def _ckpt_path(self, epoch: int, final: bool = False) -> str:

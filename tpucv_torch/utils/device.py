@@ -1,21 +1,28 @@
 """Device selection (counterpart of ``tpucv/utils/device.py``): the CUDA
 device with the most free memory, as the reference's
-``core/utils/device.py`` picks it."""
+``core/utils/device.py`` picks it, except under torchrun, where each rank
+takes its own card, ``cuda:LOCAL_RANK``."""
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 
 def get_device(prefer: str = "cuda") -> torch.device:
     """The CUDA device with the most free memory when ``prefer`` is
-    ``"cuda"``; any other ``prefer`` names the device itself. Raises when
-    CUDA is asked for and absent, rather than moving to the CPU."""
+    ``"cuda"`` (``cuda:LOCAL_RANK`` when torchrun set ``LOCAL_RANK``); any
+    other ``prefer`` names the device itself. Raises when CUDA is asked for
+    and absent, rather than moving to the CPU."""
     if prefer != "cuda":
         return torch.device(prefer)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available here; pass 'cpu' to run "
                            "on the CPU")
+    local = os.environ.get("LOCAL_RANK")
+    if local:
+        return torch.device("cuda", int(local))
     free = [torch.cuda.mem_get_info(i)[0]
             for i in range(torch.cuda.device_count())]
     return torch.device("cuda", max(range(len(free)), key=free.__getitem__))
