@@ -14,7 +14,10 @@ predict and top-1 / top-5 evaluate; then the export layer (torch.export
 and torch.compile of the serving program, int8 included), data
 parallelism (world size 1 over NCCL through the trainer, two ranks over
 gloo on the card, a ZeRO-1 checkpoint resumed in one process), the bench
-at YOLOv8 s/m/l/x and the shipped YOLOv7-x and SSD512.
+at YOLOv8 s/m/l/x and the shipped YOLOv7-x and SSD512; then the mesh's
+model axis (channel-sharded YOLOv8x training), batch-sharded inference
+and spatial partitioning on two gloo ranks, and the legacy YOLOv3
+through its forward, loss, trainer, predict and evaluate.
 
     python3 chip_smoke.py
 
@@ -356,6 +359,49 @@ script started); any failure exits non-zero:
             parity card against CPU (B=2, the family's parity phase), one
             B=16 bf16 train step (ms, peak memory), and the bench line
             through bench.bench_family at the family's batches.
+69. model_axis  two ranks spawned over gloo on the card as a (1, 2) mesh
+            (data 1, model 2): yolo8_det at scale x, full width, 320²,
+            global B=2, f32, TF32 off, Adam 1e-3, EMA 0.9999, 2 steps,
+            every kernel of 65,536 elements or more sharded over the model
+            axis (shard_model); against one process's steps within the
+            DDP_* bounds; each rank's parameter bytes against one
+            process's; step ms; the checkpoint saved under (1, 2) resumed
+            in one process bit-equal to the ranks' whole state (weights,
+            EMA, Adam's moments, step).
+70. sharded_infer  the same two ranks as a (2, 1) mesh: YOLOv8n's serving
+            program (make_infer_fn, 640², f32, TF32 off, the class branch
+            sharpened, K <= 1024: nms_keep) on B=8 raw images through
+            parallel.mesh.sharded_infer, 4 rows a rank; valid and classes
+            equal to one process's, scores and boxes within
+            tests/test_parallel.py:362-365's tolerances; nms_keep's count
+            zeroed before and read after each call: once a rank a call.
+71. spatial  the same two ranks as a (1, 2) mesh, the height split over
+            the model axis: tpucv's spatial test net (B=4, 32², flax SAME
+            padding) and YOLOv8n's backbone, neck and head in train mode
+            (enable_spatial, 640², B=2, f32), the outputs gathered; the
+            loss, outputs and gradients (summed over the ranks) against
+            one process's: the loss within 1e-5 relative, outputs within
+            SPATIAL_REL, the net's gradients within SPATIAL_REL and
+            YOLOv8n's within twice the share (of each tensor's largest)
+            by which one process's f32 gradients part from its float64
+            ones.
+72. yolo3_parity  the legacy YOLOv3 (Darknet-53, nc 80, 416²,
+            unregistered: Yolo3Config / Yolo3Algorithm), seed-0 weights:
+            the f32 forward (B=2) card against CPU within YOLO3_FWD_REL
+            of each map's largest value; make_yolov3_targets on the card
+            equal to the CPU's (the log-size entries within 1e-6
+            relative) and yolov3_loss's terms within 1e-4 relative, on
+            the CPU's maps with 100 GT rows an image.
+73. yolo3_trainer  Yolo3Trainer as shipped (416², B=16, M=100, bf16,
+            device augmentation, mosaic 0.5, synthetic data) for 4 steps
+            with evaluate_loop and the saves: finite losses; then the
+            B=16 bf16 step on a device-resident batch: ms (CUDA events),
+            kernel ms and launches (torch.profiler), peak memory.
+74. yolo3_predict / yolo3_evaluate  the trained weights with the
+            objectness and class rows sharpened: DetectionAlgorithm.predict
+            on the serve images (conf 0.5, K = 4096: the scan) and
+            evaluate_on_coco on a COCO root written here (64 JPEGs, a PNG;
+            B=32, conf 0.001, K = 4096); nms_keep's count 0 on both.
 
 The line before the last holds {"kernels": [...]} (nms_keep, with its
 launches on every path that runs it, the int8, YOLOv7, SSD, CenterNet,
@@ -373,6 +419,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -430,6 +477,24 @@ SIMOTA_TIE_REL = 1e-6       # slate costs this close (relative) are a tie:
 #                             ~9 f32 ulps; the card's log and sigmoid part
 #                             from the CPU's by an ulp or two
 VARIANT_BATCH = 16          # the variants' shipped training batch
+MESH_WORLD = 2              # the mesh phases' gloo ranks on the one card
+MODEL_AXIS_SCALE = "x"      # the widest YOLOv8: the most sharded kernels
+MODEL_AXIS_SIZE = 320       # its input (full width, a reduced input)
+MODEL_AXIS_BATCH = 2
+MODEL_AXIS_STEPS = 2
+SHARDED_INFER_BATCH = 8
+SPATIAL_SIZE = 640          # YOLOv8n's input under the height split
+SPATIAL_REL = 2e-4          # tpucv's spatial bound (tests/test_parallel.py
+#                             :326-329), outputs and gradients against one
+#                             process, relative and absolute
+SPATIAL_GRAD_CEIL = 1e-2    # the most YOLOv8n's spatial gradient bound may
+#                             be: twice the largest share by which one
+#                             process's f32 gradients part from float64
+#                             (4.8e-3, on the CPU)
+YOLO3_FWD_REL = 1e-4        # YOLOv3's f32 maps, card against CPU, of each
+#                             map's largest value
+YOLO3_GAIN = 20.0           # YOLOv3's objectness and class logits scaled
+#                             so that scores spread past conf 0.5
 AUG_PIXEL_TOL = 1e-5   # augment_batch, card against CPU, f32 values in [0, 1]
 TRAIN_STEPS = 40       # 10 epochs of the synthetic set's 4 batches of 16
 STEADY_FROM = 8        # the trainer's window: steps 8-39 (epochs 2-9)
@@ -5095,6 +5160,402 @@ class Smoke:
         emit({"phase": f"{name}_bench", **line, "nms_launches": n})
         return n
 
+    def phase_mesh(self):
+        """The mesh's model axis, batch-sharded inference and spatial
+        partitioning (phases model_axis, sharded_infer, spatial): two
+        ranks spawned over gloo on the one card (``mesh_rank``; NCCL
+        refuses two ranks on one GPU), then each case's one-process run
+        here and the comparisons. Returns nms_keep's launches on each
+        rank in each of the three, read in the ranks."""
+        import torch.multiprocessing as mp
+
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.probes.common import timed
+        from tpucv_torch.train.state import TrainState
+
+        torch = self.torch
+        d = ROOT / "saves" / "chip_smoke" / "mesh"
+        d.mkdir(parents=True, exist_ok=True)
+        # a FileStore in a fresh directory: a file left by an earlier run
+        # would hold that run's addresses
+        init = "file://" + str(Path(tempfile.mkdtemp(dir=d)) / "store")
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, MESH_WORLD, init, str(d)))
+                 for r in range(MESH_WORLD)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(900)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * MESH_WORLD, f"mesh: the ranks exited with "
+                                         f"{codes}")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
+                 for r in range(MESH_WORLD)]
+
+        # the model axis
+        launches = {k: [r[k]["nms_launches"] for r in ranks]
+                    for k in ("model_axis", "spatial")}
+        for k, v in launches.items():
+            check(v == [0] * MESH_WORLD, f"{k}: nms_keep launched {v} times "
+                                         f"(a rank)")
+        ref = model_axis_run(self.dev)
+        got = [r["model_axis"] for r in ranks]
+        for k in ("sd", "ema"):
+            check(all(torch.equal(v, got[1][k][name])
+                      for name, v in got[0][k].items()),
+                  f"model_axis: the ranks' whole {k} differ")
+        res = ddp_compare("yolo8_det", got[0], ref, phase="model_axis",
+                          steps=MODEL_AXIS_STEPS)
+        state = TrainState.create(ddp_model(
+            "yolo8_det", self.dev, seed=1, scale=MODEL_AXIS_SCALE), 1e-3,
+            use_ema=True)
+        CheckPoint.load(str(d / "model_axis.ckpt"), state)
+        names = {id(p): n for n, p in state.params.items()}
+        loaded = {names[id(p)]: st for p, st in state.optimizer.state.items()}
+        check(state.step == MODEL_AXIS_STEPS and all(
+            torch.equal(v.cpu(), got[0]["sd"][k])
+            for k, v in state.model.state_dict().items()) and all(
+            torch.equal(v.cpu(), got[0]["ema"][k])
+            for k, v in state.ema.items()) and all(
+            torch.equal(loaded[n][k].cpu(), v)
+            for n, m in got[0]["moments"].items() for k, v in m.items()),
+            "model_axis: the (1, 2) checkpoint does not resume in one "
+            "process bit-equal to the ranks' state")
+        del state
+        emit({"phase": "model_axis", "mesh": [1, MESH_WORLD],
+              "config": f"yolo8_det scale {MODEL_AXIS_SCALE}, "
+                        f"{MODEL_AXIS_SIZE}², global B={MODEL_AXIS_BATCH}, "
+                        f"f32, TF32 off, Adam 1e-3, EMA 0.9999",
+              "steps": MODEL_AXIS_STEPS,
+              "sharded_kernels": got[0]["sharded_kernels"],
+              "param_bytes_by_rank": [g["param_bytes"] for g in got],
+              "param_bytes_one_process": ref["param_bytes"],
+              "two_rank_step_ms": [g["step_ms"] for g in got],
+              "one_process_step_ms": ref["step_ms"], **res,
+              "checkpoint_resumes_in_one_process_bit_equal": True,
+              "nms_launches_by_rank": launches["model_axis"],
+              "ranks_s": ranks_s, "nvidia_smi": nvidia_smi()})
+
+        # batch-sharded inference
+        algo, model, imgs = sharded_infer_setup(self.dev)
+        with torch.inference_mode():
+            one = [t.cpu() for t in algo.make_infer_fn()(model, imgs)]
+        one_ms = timed(lambda: algo.make_infer_fn()(model, imgs), 5,
+                       self.dev)
+        b_r, s_r, c_r, v_r = one
+        score_err = box_err = 0.0
+        for r in ranks:
+            b_o, s_o, c_o, v_o = r["sharded_infer"]["out"]
+            check(torch.equal(v_r, v_o) and torch.equal(c_r[v_r], c_o[v_o]),
+                  "sharded_infer: valid or classes differ from one process")
+            check(bool(torch.allclose(s_o[v_o], s_r[v_r], rtol=1e-5,
+                                      atol=1e-6)) and
+                  bool(torch.allclose(b_o[v_o], b_r[v_r], rtol=1e-4,
+                                      atol=1e-3)),
+                  "sharded_infer: scores or boxes differ from one process")
+            score_err = max(score_err, float(
+                (s_o[v_o] - s_r[v_r]).abs().max()))
+            box_err = max(box_err, float((b_o[v_o] - b_r[v_r]).abs().max()))
+        infer_launches = [r["sharded_infer"]["nms_launches"] for r in ranks]
+        check(infer_launches == [1] * MESH_WORLD,
+              f"sharded_infer: nms_keep launched {infer_launches} times "
+              f"(a rank) in one call")
+        emit({"phase": "sharded_infer", "mesh": [MESH_WORLD, 1],
+              "batch": SHARDED_INFER_BATCH, "rows_a_rank":
+                  SHARDED_INFER_BATCH // MESH_WORLD,
+              "valid": int(v_r.sum()), "score_max_abs_err": score_err,
+              "box_max_abs_err": box_err,
+              "nms_launches_by_rank": infer_launches,
+              "ms_by_rank": [r["sharded_infer"]["ms"] for r in ranks],
+              "one_process_ms": one_ms, "nvidia_smi": nvidia_smi()})
+
+        # spatial partitioning: tpucv's net to tpucv's bound; YOLOv8n's
+        # gradients, which train-mode BatchNorm makes ill-conditioned, to
+        # twice the share by which one process's own f32 gradients part
+        # from its float64 ones (as GRAD_SHARE holds data parallelism)
+        ref = spatial_case(self.dev)
+        ref64 = spatial_case(self.dev, dtype=torch.float64)
+        row = {"phase": "spatial", "mesh": [1, MESH_WORLD]}
+        for part in ("net", "yolo8n"):
+            r, r64 = ref[part], ref64[part]
+            one_share = grad_share(r["grads"], r64["grads"])
+            row[f"{part}_one_process_f32_grad_share_vs_f64"] = one_share
+            for k, rank in enumerate(ranks):
+                g = rank["spatial"][part]
+                loss_rel = abs(g["loss"] - r["loss"]) / abs(r["loss"])
+                out_x = max_excess(g["out"], r["out"], SPATIAL_REL)
+                share = grad_share(g["grads"], r64["grads"])
+                if part == "net":
+                    grad_ok = max_excess(g["grads"], r["grads"],
+                                         SPATIAL_REL) <= 0
+                else:
+                    grad_ok = share <= min(max(2 * one_share, SPATIAL_REL),
+                                           SPATIAL_GRAD_CEIL)
+                stat_x = (max_excess(list(g["stats"].values()),
+                                     list(r["stats"].values()), 1e-5)
+                          if "stats" in r else 0.0)
+                check(loss_rel < 1e-5 and out_x <= 0 and grad_ok and
+                      stat_x <= 0, f"spatial {part} rank {k}: loss "
+                      f"{loss_rel}, outputs {out_x}, gradient share "
+                      f"{share} (one process {one_share}), BN statistics "
+                      f"{stat_x} beyond the bounds")
+                row[f"{part}_rank{k}"] = {
+                    "loss_rel_err": loss_rel,
+                    "out_max_abs_err": max(float((a - b).abs().max())
+                                           for a, b in zip(g["out"],
+                                                           r["out"])),
+                    "grad_max_abs_err": max(float((a - b).abs().max())
+                                            for a, b in zip(g["grads"],
+                                                            r["grads"])),
+                    "grad_share_vs_f64": share}
+        emit({**row, "size": SPATIAL_SIZE,
+              "nms_launches_by_rank": launches["spatial"],
+              "nvidia_smi": nvidia_smi()})
+        return {**launches, "sharded_infer": infer_launches}
+
+    # ------------------------------------------------------ YOLOv3 (legacy)
+    def yolo3_setup(self, mixed_precision=True):
+        """The unregistered YOLOv3 as shipped (Yolo3Config: Darknet-53,
+        COCO nc 80, 416²) on the card and its seed-0 model."""
+        from tpucv_torch.configs.model_cfgs import Yolo3Config
+        from tpucv_torch.trainer.yolov3_train import Yolo3Algorithm
+
+        cfg = Yolo3Config()
+        cfg.train.mixed_precision = mixed_precision
+        algo = Yolo3Algorithm(cfg, device=self.dev)
+        return algo, algo.init_variables(seed=0)
+
+    def phase_yolo3_parity(self):
+        """The f32 forward (TF32 off) of the seed-0 YOLOv3 at 416, B=2, on
+        the card against the CPU, each map within YOLO3_FWD_REL of its
+        largest value; then make_yolov3_targets and yolov3_loss on the
+        CPU's maps, 100 GT rows an image (some padded), on both devices:
+        the targets equal but for the log-size entries (1e-6 relative:
+        the card's log parts from the CPU's by an ulp), the loss terms
+        within 1e-4 relative."""
+        import copy
+
+        from tpucv_torch.losses.yolov3 import make_yolov3_targets, yolov3_loss
+
+        torch = self.torch
+        cpu = torch.device("cpu")
+        algo, model = self.yolo3_setup(mixed_precision=False)
+        x = torch.from_numpy(np.random.default_rng(3).random(
+            (2, 416, 416, 3), dtype=np.float32))
+        with torch.inference_mode():
+            got = model(x.to(self.dev))
+            raw = copy.deepcopy(model).to(cpu).to(
+                memory_format=torch.contiguous_format)(x)
+        rel = [float((g.cpu() - c).abs().max() / c.abs().max())
+               for g, c in zip(got, raw)]
+        rng = np.random.default_rng(4)
+        cxy = rng.uniform(20, 396, (2, 100, 2))
+        wh = rng.uniform(8, 300, (2, 100, 2))
+        gt = {"gt_bboxes": torch.from_numpy(np.concatenate(
+                  [cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)),
+              "gt_labels": torch.from_numpy(rng.integers(0, 80, (2, 100))),
+              "gt_mask": torch.from_numpy(rng.random((2, 100)) < 0.3)}
+        args = (algo.anchors, algo.anchor_mask, algo.strides)
+
+        def on(dev):
+            g = [gt[k].to(dev) for k in ("gt_bboxes", "gt_labels",
+                                         "gt_mask")]
+            with torch.inference_mode():
+                t = make_yolov3_targets(*g, *args,
+                                        [r.shape[1:3] for r in raw], algo.nc)
+                total, parts = yolov3_loss([r.to(dev) for r in raw], *g,
+                                           *args, algo.nc)
+            return ([v.cpu() for v in t],
+                    {"loss": float(total),
+                     **{k: float(v) for k, v in parts.items()}})
+
+        (t_c, l_c), (t_g, l_g) = on(cpu), on(self.dev)
+        other = [0, 1, *range(4, 5 + algo.nc)]
+        targets_equal = all(torch.equal(a[..., other], b[..., other])
+                            for a, b in zip(t_g, t_c))
+        wh_rel = max(float(((a[..., 2:4] - b[..., 2:4]).abs()
+                            / b[..., 2:4].abs().clamp(min=1e-6)).max())
+                     for a, b in zip(t_g, t_c))
+        terms = {k: abs(l_g[k] - v) / max(abs(v), 1e-12)
+                 for k, v in l_c.items()}
+        emit({"phase": "yolo3_parity", "shapes": [list(t.shape) for t in got],
+              "forward_rel_err_by_map": rel,
+              "positives": int(sum(float(t[..., 4].sum()) for t in t_c)),
+              "targets_equal_but_log_size": targets_equal,
+              "targets_log_size_max_rel_err": wh_rel,
+              "loss_cpu": l_c, "loss_card": l_g,
+              "loss_max_rel_err": max(terms.values())})
+        check(max(rel) < YOLO3_FWD_REL,
+              f"yolo3: the f32 forward on the card differs from the CPU: "
+              f"{rel} of each map's largest value")
+        check(targets_equal and wh_rel <= 1e-6,
+              f"yolo3: the card's targets differ from the CPU's "
+              f"({targets_equal}, log sizes {wh_rel})")
+        check(max(terms.values()) <= 1e-4,
+              f"yolo3: loss card {l_g} against CPU {l_c}")
+
+    def phase_yolo3_trainer(self, steps=4):
+        """Yolo3Trainer as shipped (416², B=16, M=100, bf16, device
+        augmentation, mosaic 0.5, synthetic data) for ``steps`` steps,
+        evaluate_loop and the saves at the epoch's end; then the step on a
+        device-resident batch (probes.train_step's synthetic batch): ms
+        (CUDA events), kernel ms and launches (torch.profiler), peak
+        memory. Returns the final checkpoint's path and nms_keep's launches
+        over the path."""
+        from tpucv_torch.configs.model_cfgs import Yolo3Config
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.probes.common import timed
+        from tpucv_torch.probes.train_step import _host_waits, synthetic_batch
+        from tpucv_torch.trainer.yolov3_train import Yolo3Trainer
+
+        torch = self.torch
+        cfg = Yolo3Config()
+        t, dset = cfg.train, cfg.dataset
+        check(dset.input_size == 416 and t.batch_size == 16 and
+              t.mixed_precision and dset.max_num_boxes == 100,
+              "yolov3's config is not as shipped")
+        out = ROOT / "saves" / "chip_smoke" / "yolov3"
+        t.save_path, cfg.log.root = str(out / "saves"), str(out / "log")
+        cfg.log.tensorboard_on = False
+        cfg.log.print_interval = 1
+        t.eval_interval = t.save_interval = 1
+        nms_keep.launches = 0                # just before the path
+        t0 = time.perf_counter()
+        trainer = Yolo3Trainer(cfg, device=self.dev)
+        trainer.tb = rec = Recorder()
+        state = trainer.train(max_steps=steps)
+        self.sync()
+        train_s = time.perf_counter() - t0
+        terms = ("loss", "xy_loss", "wh_loss", "obj_loss", "cls_loss")
+        losses = {k: rec.rows[f"train/{k}"] for k in terms}
+        check(state.step == steps and all(
+            np.isfinite(v) for r in losses.values() for v in r.values()),
+            f"yolo3 trainer: {state.step} steps, losses {losses}")
+        val = trainer.last_eval
+        check(all(np.isfinite(v) for v in val.values()) and
+              "val_obj_loss" in val, f"yolo3 trainer: evaluate_loop {val}")
+        step = trainer.build_train_step()
+        batch = synthetic_batch(16, 416, 100, self.dev, torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        step_ms = timed(lambda: step(state, batch), 10, self.dev)
+        peak = torch.cuda.max_memory_allocated(self.dev)
+        prof = _host_waits(step, state, batch, 3, self.dev)
+        launches = nms_keep.launches
+        check(launches == 0, f"yolo3 trainer: nms_keep launched {launches}")
+        emit({"phase": "yolo3_trainer",
+              "config": "YOLOv3 (Darknet-53) as shipped: COCO nc 80, 416², "
+                        "B=16, M=100, bf16, device augmentation, mosaic "
+                        "0.5, synthetic data",
+              "steps": steps, "train_s": train_s, "loss_logged": losses,
+              "val": val, "step_ms_device_resident": step_ms,
+              "step_kernel_ms_profiler": prof["kernel_ms"],
+              "launches_a_step": prof["launches_a_step"],
+              "syncs_a_step": prof["syncs_a_step"],
+              "busy_share": (prof["kernel_ms"] or 0.0) / step_ms,
+              "peak_mem_bytes": peak, "nms_keep_launches": launches,
+              "nvidia_smi": nvidia_smi()})
+        return trainer._ckpt_path(cfg.train.epochs - 1, final=True), launches
+
+    def yolo3_sharpened(self, ckpt):
+        """The algorithm as shipped (bf16) and the checkpoint's weights with
+        the objectness and class rows of the three output convs scaled by
+        YOLO3_GAIN and their biases zeroed: scores spread and the NMS has
+        work."""
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+
+        torch = self.torch
+        algo, model = self.yolo3_setup()
+        model.load_state_dict(CheckPoint.load_pure(ckpt))
+        per_anchor = 5 + model.nc
+        with torch.no_grad():
+            for name in ("y5_out", "y4_out", "y3_out"):
+                head = getattr(model, name)
+                head.weight.view(model.na, per_anchor, -1)[:, 4:] *= \
+                    YOLO3_GAIN
+                head.bias.view(model.na, per_anchor)[:, 4:] = 0.0
+        return algo, model
+
+    def phase_yolo3_predict(self, algo, model, imgs, reps=2):
+        """DetectionAlgorithm.predict on the serve images (4 JPEGs, a PNG;
+        conf 0.5, K = 4096: the scan), nms_keep's count zeroed just before
+        and read just after (0); detections and drawn files; ms an image
+        (median)."""
+        import cv2
+
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        out = ROOT / "saves" / "chip_smoke" / "yolov3" / "predict"
+        out.mkdir(parents=True, exist_ok=True)
+        srcs = []
+        for k, img in enumerate(imgs[:5]):
+            srcs.append(str(out / f"img{k}{'.png' if k == 4 else '.jpg'}"))
+            check(cv2.imwrite(srcs[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
+                  f"could not write {srcs[-1]}")
+        infer = algo.make_infer_fn()
+        nms_keep.launches = 0                # just before the path
+        got = [algo.predict(model, src, infer_fn=infer,
+                            save_dir=str(out / "drawn")) for src in srcs]
+        launches = nms_keep.launches         # just after
+        ms = []
+        for _ in range(reps):
+            for src in srcs:
+                self.sync()
+                t0 = time.perf_counter()
+                algo.predict(model, src, infer_fn=infer, save_dir=None)
+                self.sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        n_dets = [len(r["classes"]) for r in got]
+        check(launches == 0, f"yolo3 predict: nms_keep launched {launches} "
+                             f"times at K=4096")
+        check(sum(n_dets) > 0 and all(r["saved"] and Path(r["saved"])
+                                      .is_file() for r in got),
+              f"yolo3 predict: detections {n_dets}, drawn files "
+              f"{[r['saved'] for r in got]}")
+        emit({"phase": "yolo3_predict", "images": len(srcs), "K": 4096,
+              "nms_launches": launches, "detections": n_dets,
+              "ms_per_image_median": float(np.median(ms)),
+              "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_yolo3_evaluate(self, algo, model, batch=32):
+        """evaluate_on_coco on a COCO-layout root written here (64 640x480
+        JPEGs and a PNG from SyntheticDetectionIndex, one crowd GT; B=32,
+        conf 0.001, K = 4096: the scan): the 12 stats, images/s, nms_keep's
+        count 0."""
+        from tpucv_torch.data.coco import COCOIndex
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        base = ROOT / "saves" / "chip_smoke" / "yolov3" / "evaluate"
+        root = base / "coco"
+        n_img = write_coco_root(root, 64)
+        index = COCOIndex(str(root / "annotations" / "instances_val2017.json"),
+                          str(root / "val2017"))
+        nms_keep.launches = 0                # just before the path
+        t0 = time.perf_counter()
+        stats = algo.evaluate_on_coco(model, index, batch_size=batch,
+                                      conf_threshold=0.001,
+                                      result_dir=str(base), verbose=False)
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = nms_keep.launches         # just after
+        check(launches == 0, f"yolo3 evaluate: nms_keep launched {launches}")
+        check(len(stats) == 12 and all(np.isfinite(v)
+                                       for v in stats.values()),
+              f"yolo3 evaluate: {stats}")
+        emit({"phase": "yolo3_evaluate", "images": n_img, "batch": batch,
+              "K": 4096, "nms": "scan", "stats": stats,
+              "img_per_s": n_img / wall, "nms_keep_launches": launches,
+              "nvidia_smi": nvidia_smi()})
+        return launches
+
     def bound(self, sb, ss, keep, thr):
         """Least time for the greedy keep mask on these inputs: bytes (boxes
         and scores read once, the mask written once) over HBM bandwidth,
@@ -5203,11 +5664,13 @@ def ddp_trainer_run(dev, tag):
     return out
 
 
-def ddp_model(name, dev, seed=0):
+def ddp_model(name, dev, seed=0, scale=None):
     from tpucv_torch.builder import export_from_registry
 
     cfg, algo_cls, _ = export_from_registry(name)
     cfg.train.mixed_precision = False
+    if scale is not None:
+        cfg.arch.model_type = scale
     return algo_cls(cfg, device=dev).init_variables(seed=seed)
 
 
@@ -5290,13 +5753,13 @@ def ddp_rank(rank, world, port, out_dir):
     torch.save(out, Path(out_dir) / f"rank{rank}.pt")
 
 
-def ddp_compare(name, got, ref):
-    """A two-rank run against one process's on the global batch, held to
-    the DDP_* bounds; the measured differences."""
+def ddp_compare(name, got, ref, phase="ddp", steps=DDP_STEPS):
+    """A two-rank run of ``steps`` steps against one process's on the
+    global batch, held to the DDP_* bounds; the measured differences."""
     count = "num_fg" if name == "yolo8_det" else "num_pos"
     g0, r0 = got["metrics"][0], ref["metrics"][0]
     check(g0[count] == r0[count],
-          f"ddp {name}: {count} {g0[count]} against {r0[count]}")
+          f"{phase} {name}: {count} {g0[count]} against {r0[count]}")
     loss_rel = [abs(g["loss"] - r["loss"]) / abs(r["loss"])
                 for g, r in zip(got["metrics"], ref["metrics"])]
     stats = list(ref["stats1"])
@@ -5314,13 +5777,246 @@ def ddp_compare(name, got, ref):
            "param_median_abs_err": float(diffs.median())}
     check(loss_rel[0] <= DDP_LOSS_REL[0] and
           max(loss_rel[1:]) <= DDP_LOSS_REL[1],
-          f"ddp {name}: losses {loss_rel} relative from one process")
+          f"{phase} {name}: losses {loss_rel} relative from one process")
     check(stat1_err <= DDP_STAT1_ATOL and stat_rel <= DDP_STAT_REL,
-          f"ddp {name}: BN statistics {res} from one process")
-    check(res["param_max_abs_err"] <= 2 * DDP_STEPS * 1.05 * 1e-3 and
+          f"{phase} {name}: BN statistics {res} from one process")
+    check(res["param_max_abs_err"] <= 2 * steps * 1.05 * 1e-3 and
           res["param_median_abs_err"] <= DDP_PARAM_MEDIAN,
-          f"ddp {name}: parameters {res} from one process")
+          f"{phase} {name}: parameters {res} from one process")
     return res
+
+
+# ------------------------------------------------- the mesh's model axis --
+def model_axis_run(dev, mesh=None, ckpt=None):
+    """MODEL_AXIS_STEPS f32 steps of yolo8_det at scale MODEL_AXIS_SCALE
+    and MODEL_AXIS_SIZE² (seed-0 weights, Adam 1e-3, EMA 0.9999) on bench's
+    family batch of MODEL_AXIS_BATCH, or on this rank's rows of it with
+    the large kernels sharded over ``mesh``'s model axis: every step's
+    metrics and synced host-clock ms, the BN statistics after the first
+    step, the whole weights, EMA and Adam moments after the last (on the
+    CPU), the parameter bytes this process holds and the count of sharded
+    kernels; ``ckpt``: the state saved there (collective)."""
+    import torch
+
+    from tpucv_torch import bench
+    from tpucv_torch.builder import export_from_registry
+    from tpucv_torch.ckpt.checkpoint import CheckPoint
+    from tpucv_torch.parallel import mesh as pmesh
+    from tpucv_torch.train.state import TrainState, make_train_step
+
+    cfg, algo_cls, _ = export_from_registry("yolo8_det")
+    cfg.arch.model_type = MODEL_AXIS_SCALE
+    cfg.dataset.input_size = S = MODEL_AXIS_SIZE
+    cfg.train.mixed_precision = False
+    algo = algo_cls(cfg, device=dev)
+    model = algo.init_variables(seed=0)
+    batch = bench.family_batch("yolo8_det", cfg, MODEL_AXIS_BATCH, S, dev,
+                               torch.float32)
+    if mesh is not None:
+        pmesh.shard_model(model, mesh)
+        rows = torch.from_numpy(mesh.rows(MODEL_AXIS_BATCH)).to(dev)
+        batch = {k: v[rows] for k, v in batch.items()}
+    state = TrainState.create(model, 1e-3, use_ema=True, mesh=mesh)
+    step = make_train_step(algo.build_loss(), device=dev, ema_decay=0.9999,
+                           mixed_precision=False, mesh=mesh)
+    metrics, ms = [], []
+    for _ in range(MODEL_AXIS_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if len(metrics) == 1:
+            stats1 = {k: v.cpu().clone() for k, v in
+                      state.model.state_dict().items() if "running" in k}
+    if ckpt is not None:
+        CheckPoint.save(state, ckpt)
+    shards = pmesh.model_shards(model)
+
+    def whole(name, t):
+        return (shards[name].whole(t) if name in shards else t).cpu()
+
+    names = {id(p): n for n, p in state.params.items()}
+    return {"metrics": metrics, "step_ms": ms, "stats1": stats1,
+            "sd": {k: v.detach().cpu() for k, v in pmesh.whole_tensors(
+                state.model.state_dict(), shards).items()},
+            "ema": {k: whole(k, v) for k, v in state.ema.items()},
+            "moments": {names[id(p)]: {k: whole(names[id(p)], v)
+                                       for k, v in st.items()
+                                       if k in ("exp_avg", "exp_avg_sq")}
+                        for p, st in state.optimizer.state.items()},
+            "param_bytes": pmesh.param_bytes(model),
+            "sharded_kernels": len(shards)}
+
+
+def sharded_infer_setup(dev):
+    """YOLOv8n's serving algorithm in f32, its seed-0 model with the class
+    branch sharpened (``sharpen_``) and SHARDED_INFER_BATCH raw 640x640
+    images drawn from a seed."""
+    import torch
+
+    from tpucv_torch.builder import export_from_registry
+
+    cfg, algo_cls, _ = export_from_registry("yolo8_det")
+    cfg.train.mixed_precision = False
+    algo = algo_cls(cfg, device=dev)
+    model = algo.init_variables(seed=0)
+    sharpen_(model)
+    imgs = np.random.default_rng(5).integers(
+        0, 256, (SHARDED_INFER_BATCH, 640, 640, 3), dtype=np.uint8)
+    return algo, model, torch.from_numpy(imgs).to(dev)
+
+
+def sharded_infer_rank(dev, mesh):
+    """``parallel.mesh.sharded_infer`` of the serving program over
+    ``mesh``'s data axis: the global outputs, nms_keep's launches in the
+    one call (zeroed just before, read just after) and ms a call."""
+    from tpucv_torch.ops.cuda_nms import nms_keep
+    from tpucv_torch.parallel.mesh import sharded_infer
+    from tpucv_torch.probes.common import timed
+
+    algo, model, imgs = sharded_infer_setup(dev)
+    infer = algo.make_infer_fn()
+    nms_keep.launches = 0
+    out = sharded_infer(infer, model, imgs, mesh)
+    launches = nms_keep.launches
+    ms = timed(lambda: sharded_infer(infer, model, imgs, mesh), 5, dev)
+    return {"out": [t.cpu() for t in out], "nms_launches": launches,
+            "ms": ms}
+
+
+def spatial_net(params, x, split):
+    """tpucv's spatial test net (``tests/test_parallel.py:302-310``) on
+    NHWC ``x``: 3x3 stride-2 SAME conv to 8, ReLU, 3x3 stride-2 SAME conv
+    to 16, 2x2 average pool, 3x3 SAME conv to 16, flax's padding."""
+    from tpucv_torch.parallel import spatial as sp
+
+    x = x.permute(0, 3, 1, 2)
+    H = x.shape[2] * (split.n if split is not None else 1)
+    W = x.shape[3]
+    (w0, b0), (w1, b1), (w2, b2) = params
+    x = sp.conv2d(x, w0, b0, 2, sp.same_padding(H, 3, 2),
+                  sp.same_padding(W, 3, 2), split).relu()
+    H, W = H // 2, W // 2
+    x = sp.conv2d(x, w1, b1, 2, sp.same_padding(H, 3, 2),
+                  sp.same_padding(W, 3, 2), split)
+    x = sp.avg_pool2d(x, 2, 2, split)
+    H, W = H // 4, W // 4
+    x = sp.conv2d(x, w2, b2, 1, sp.same_padding(H, 3, 1),
+                  sp.same_padding(W, 3, 1), split)
+    return x.permute(0, 2, 3, 1)
+
+
+def spatial_case(dev, mesh=None, dtype=None):
+    """tpucv's spatial net (B=4, 32², weights from a seed) and YOLOv8n in
+    train mode (640², B=2, seed-0 weights, f32 or ``dtype``), each on
+    this rank's rows of the batch and of the height over ``mesh`` (None:
+    one process on all), the outputs gathered and the gradients summed
+    over the ranks: loss, outputs, gradients and (YOLOv8n) BN statistics,
+    on the CPU."""
+    import math
+
+    import torch
+
+    from tpucv_torch.models.yolov8 import Yolo8
+    from tpucv_torch.parallel import mesh as pmesh
+    from tpucv_torch.parallel import spatial as sp
+
+    split = None if mesh is None else sp.HeightSplit.of(mesh)
+    rng = np.random.default_rng(11)
+
+    dtype = dtype or torch.float32
+
+    def run(forward, params, x, loss_fn):
+        x = torch.from_numpy(x).to(dev, dtype)
+        if mesh is not None:
+            rows = torch.from_numpy(mesh.rows(x.shape[0])).to(dev)
+            x = sp.split_height(x[rows], split, 1)
+        out = forward(x)
+        if mesh is not None:
+            out = pmesh.gather_rows(sp.gather_height(out, split, 1), mesh)
+        loss = loss_fn(out)
+        loss.backward()
+        if mesh is not None:
+            pmesh.all_reduce_grads(params)
+        outs = out if isinstance(out, tuple) else (out,)
+        return {"loss": float(loss), "out": [o.detach().cpu() for o in outs],
+                "grads": [p.grad.cpu() for p in params]}
+
+    g = torch.Generator().manual_seed(7)
+    params = []
+    for o, i in ((8, 3), (16, 8), (16, 16)):
+        params.append((
+            (torch.randn(o, i, 3, 3, generator=g) / math.sqrt(9 * i))
+            .to(dev, dtype).requires_grad_(),
+            (torch.randn(o, generator=g) * 0.1).to(dev, dtype)
+            .requires_grad_()))
+    x = rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
+    net = run(lambda v: spatial_net(params, v, split),
+              [t for pair in params for t in pair], x,
+              lambda o: o.square().sum())
+    model = Yolo8("n", nc=80).reset_parameters(
+        torch.Generator().manual_seed(0)).to(dev, dtype).train()
+    if mesh is not None:
+        sp.enable_spatial(model, mesh)
+    x = rng.random((2, SPATIAL_SIZE, SPATIAL_SIZE, 3), dtype=np.float32)
+    yolo = run(model, [p for p in model.parameters() if p.requires_grad], x,
+               lambda out: sum(o.square().mean() for o in out))
+    yolo["stats"] = {k: v.cpu() for k, v in model.state_dict().items()
+                     if "running" in k}
+    return {"net": net, "yolo8n": yolo}
+
+
+def mesh_rank(rank, world, init, out_dir):
+    """One of ``world`` gloo ranks on cuda:0 (TF32 off): ``model_axis_run``
+    on a (1, 2) mesh (saving ``model_axis.ckpt``), ``sharded_infer_rank``
+    on (2, 1) and ``spatial_case`` on (1, 2), each with nms_keep's launches
+    on this rank (zeroed just before, read just after), written to
+    ``out_dir/rank<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpucv_torch.ops.cuda_nms import nms_keep
+    from tpucv_torch.parallel import multihost
+    from tpucv_torch.parallel.mesh import DataMesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(init, world, rank, backend="gloo")
+    try:
+        m12 = DataMesh.current(MESH_WORLD)
+        m21 = DataMesh.current(1)
+        nms_keep.launches = 0                # just before the path
+        axis = model_axis_run(dev, m12, str(Path(out_dir) /
+                                            "model_axis.ckpt"))
+        axis["nms_launches"] = nms_keep.launches     # just after
+        infer = sharded_infer_rank(dev, m21)
+        nms_keep.launches = 0                # just before the path
+        spatial = spatial_case(dev, m12)
+        spatial["nms_launches"] = nms_keep.launches  # just after
+        out = {"model_axis": axis, "sharded_infer": infer,
+               "spatial": spatial}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def grad_share(got, ref):
+    """The largest |got - ref| over a tensor's largest |ref|, over paired
+    tensors (``ref`` float64)."""
+    return max(float((g.double() - r).abs().max() / r.abs().max())
+               for g, r in zip(got, ref))
+
+
+def max_excess(got, ref, rel):
+    """The largest |got - ref| beyond ``rel * (1 + |ref|)``, elementwise
+    (<= 0 when every element is within), over paired tensors."""
+    return max(float(((g.float() - r.float()).abs()
+                      - rel * (1 + r.float().abs())).max())
+               for g, r in zip(got, ref))
 
 
 def torch_cat_abs(a, b, keys):
@@ -5669,6 +6365,12 @@ def main() -> int:
     scale_launches = smoke.phase_scales(bench_offs[0], bench_thr)
     y7x_launches = smoke.phase_variant("yolo7x")
     ssd512_launches = smoke.phase_variant("ssd512")
+    mesh_launches = smoke.phase_mesh()
+    smoke.phase_yolo3_parity()
+    y3_ckpt, y3_train_launches = smoke.phase_yolo3_trainer()
+    y3_algo, y3_model = smoke.yolo3_sharpened(y3_ckpt)
+    y3_predict_launches = smoke.phase_yolo3_predict(y3_algo, y3_model, imgs)
+    y3_eval_launches = smoke.phase_yolo3_evaluate(y3_algo, y3_model)
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
     print(nvidia_smi(), flush=True)
@@ -5732,7 +6434,18 @@ def main() -> int:
                              "ddp: no NMS": ddp_launches,
                              **scale_launches,
                              "yolo7x_bench (K=4096: the scan)": y7x_launches,
-                             "ssd512_bench (B=64, K=1024)": ssd512_launches},
+                             "ssd512_bench (B=64, K=1024)": ssd512_launches,
+                             **{f"{k} (2 ranks): no NMS, a rank": v
+                                for k, v in mesh_launches.items()
+                                if k != "sharded_infer"},
+                             "sharded_infer (B=8 over 2 ranks, K<=1024): "
+                             "a rank in one call":
+                                 mesh_launches["sharded_infer"],
+                             "yolo3_trainer: no NMS": y3_train_launches,
+                             "yolo3_predict (K=4096: the scan)":
+                                 y3_predict_launches,
+                             "yolo3_evaluate (K=4096: the scan)":
+                                 y3_eval_launches},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

@@ -36,7 +36,8 @@ metrics unrounded. Held:
 
 The port alone, at B=8 (8 steps an epoch): 2 epochs in one run equal 1
 epoch, a resume and 1 more epoch exactly; a NaN loss writes
-``-diverged.ckpt`` and raises; ``n_model`` > 1 is refused by name, and
+``-diverged.ckpt`` and raises; an ``n_model`` that does not divide the
+world size is refused by name, and
 ``zero_opt`` in one process (no process group) trains with plain Adam; ``eval_map`` logs ``map50``, scored on the EMA weights;
 ``python -m tpucv_torch.train``'s ``main`` trains a step; ``python -m tpucv_torch.serve`` serves a request
 from a bundle the trainer saved.
@@ -300,7 +301,11 @@ def test_nan_loss_saves_diverged_checkpoint_and_raises(tmp_path):
 @pytest.mark.parametrize("setting,value,item", [
     ("n_model", 2, "item 14")])
 def test_unported_settings_refused_by_name(tmp_path, setting, value, item):
-    with pytest.raises(NotImplementedError, match=f"{setting}.*{item}b"):
+    """``train.n_model`` (ROADMAP item 14b, ported since) must divide the
+    world size, as tpucv's must divide its device count: one process
+    refuses a model axis of 2 by name."""
+    with pytest.raises(ValueError,
+                       match=f"{setting}={value} does not divide the 1 "):
         port_trainer(tmp_path, **{setting: value})
 
 
@@ -395,7 +400,7 @@ def test_train_cli_main_runs(small_cli, tmp_path):
         "yolo8_det_coco_epoch-0.ckpt", "yolo8_det_coco_final.ckpt"]
     assert all(torch.isfinite(v).all()
                for v in state.model.state_dict().values())
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="n_model=2 does not divide"):
         small_cli.main(["--model", "yolo8_det", "--device", "cpu",
                         "--n-model", "2"])
 

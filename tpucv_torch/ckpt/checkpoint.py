@@ -7,11 +7,16 @@ the EMA of the parameters (or None) and the step. It is written with
 a reader never sees half a file.
 
 Under data parallelism every rank calls ``save`` (it is collective when the
-Adam moments are ZeRO-partitioned: they are consolidated on rank 0 first)
-and rank 0 alone writes. The bundle is always the replicated one, a plain
-``torch.optim.Adam`` state, so a checkpoint saved under W ranks, with or
-without ZeRO, resumes in one process, and the other way round; ``load``
-into a ZeRO optimizer keeps this rank's share of the moments. ``load_pure`` returns the model weights
+Adam moments are ZeRO-partitioned: they are consolidated on the first rank
+of each data group first, and when kernels are sharded over the model
+axis: their weights, EMA and moments are gathered whole over the model
+group) and rank 0 alone writes. The bundle is always the replicated one,
+whole kernels and a plain ``torch.optim.Adam`` state, so a checkpoint
+saved under any ``(n_data, n_model)`` mesh, with or without ZeRO, resumes
+in one process or under any other mesh, and the other way round:
+``load`` cuts each sharded kernel's weight, EMA and moments to this
+rank's slice, and into a ZeRO optimizer keeps this rank's share of the
+moments. ``load_pure`` returns the model weights
 alone, from a bundle or from a bare ``state_dict``, as tpucv's does.
 """
 
@@ -50,16 +55,16 @@ def _weights(raw: Any) -> StateDict:
 
 def replicated_optimizer_state(optimizer) -> Optional[Dict[str, Any]]:
     """The optimizer's ``state_dict`` as a replicated ``torch.optim.Adam``
-    gives it. A ZeRO optimizer's moments are consolidated on rank 0 (a
-    collective: every rank calls this), whose state it returns with the
-    inner Adam's group keys; the other ranks get None."""
+    gives it. A ZeRO optimizer's moments are consolidated on the first rank
+    of its process group (a collective: every rank calls this), whose state
+    it returns with the inner Adam's group keys; the other ranks get
+    None."""
     from tpucv_torch.parallel import mesh as pmesh
-    from tpucv_torch.parallel.multihost import is_primary
 
     if not pmesh.is_zero(optimizer):
         return optimizer.state_dict()
     optimizer.consolidate_state_dict(to=0)
-    if not is_primary():
+    if optimizer.rank != 0:
         return None
     sd = optimizer.state_dict()
     keys = {k: v for k, v in optimizer.optim.param_groups[0].items()
@@ -69,38 +74,72 @@ def replicated_optimizer_state(optimizer) -> Optional[Dict[str, Any]]:
     return {"state": sd["state"], "param_groups": groups}
 
 
+def _moments(optimizer_state: Dict[str, Any], state, shards, fn):
+    """``optimizer_state`` with ``fn(shard, tensor, param)`` applied to
+    the moments of every sharded parameter (the state is keyed by the
+    parameter's index in ``state.params``)."""
+    names = list(state.params)
+    out = dict(optimizer_state)
+    out["state"] = {
+        i: ({k: (fn(shards[names[i]], v, state.params[names[i]])
+                 if k in ("exp_avg", "exp_avg_sq") else v)
+             for k, v in s.items()} if names[i] in shards else s)
+        for i, s in optimizer_state["state"].items()}
+    return out
+
+
 class CheckPoint:
     @staticmethod
     def save(state, path: str) -> str:
         """Write ``state`` (a ``train.state.TrainState``) as one bundle, on
-        rank 0 alone; every rank of a data-parallel run calls it."""
+        rank 0 alone, with whole kernels; every rank of a data-parallel run
+        calls it."""
+        from tpucv_torch.parallel import mesh as pmesh
         from tpucv_torch.parallel.multihost import is_primary
 
+        shards = pmesh.model_shards(state.model)
+        model = pmesh.whole_tensors(state.model.state_dict(), shards)
+        ema = (None if state.ema is None else
+               pmesh.whole_tensors(state.ema, shards))
         optimizer = replicated_optimizer_state(state.optimizer)
+        if shards and optimizer is not None:
+            # every rank that holds the whole state of its slice (all, or
+            # under ZeRO the first data index's) gathers its model group's
+            optimizer = _moments(optimizer, state, shards,
+                                 lambda sh, v, p: sh.whole(v.to(p.device)))
         if not is_primary():
             return path
         return _atomic_save({
-            "model": state.model.state_dict(),
+            "model": model,
             "optimizer": optimizer,
-            "ema": state.ema,
+            "ema": ema,
             "step": state.step,
         }, path)
 
     @staticmethod
     def load(path: str, state):
         """Load a bundle written by :meth:`save` into ``state`` in place
-        (tensors go to the devices of ``state``'s own) and return it."""
+        (tensors go to the devices of ``state``'s own; a kernel sharded
+        over the model axis takes its slice) and return it."""
+        from tpucv_torch.parallel import mesh as pmesh
+
         raw = _read(path)
-        state.model.load_state_dict(raw["model"])
-        state.optimizer.load_state_dict(raw["optimizer"])
+        shards = pmesh.model_shards(state.model)
+        state.model.load_state_dict(pmesh.local_tensors(raw["model"], shards))
+        optimizer = raw["optimizer"]
+        if shards:
+            optimizer = _moments(optimizer, state, shards,
+                                 lambda sh, v, p: sh.take(v).clone())
+        state.optimizer.load_state_dict(optimizer)
         if (state.ema is None) != (raw["ema"] is None):
             raise ValueError(f"{path}: the EMA is "
                              f"{'absent' if raw['ema'] is None else 'present'}"
                              f" in the file but not in the train state")
         if state.ema is not None:
+            ema = pmesh.local_tensors(raw["ema"], shards)
             with torch.no_grad():
                 for k, v in state.ema.items():
-                    v.copy_(raw["ema"][k])
+                    v.copy_(ema[k])
         state.step = int(raw["step"])
         return state
 

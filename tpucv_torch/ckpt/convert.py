@@ -67,7 +67,8 @@ tpucv's ``ViT`` tree keeps its own names in the port (``patchify``,
 attention's ``DenseGeneral`` kernels go flat: ``query`` / ``key`` /
 ``value`` (dim, H, hd) -> (H·hd, dim), ``out`` (H, hd, dim) -> (dim,
 H·hd), their (H, hd) biases -> (H·hd,). YOLOv8-cls's ``classify`` head
-(``conv``, ``linear``) is ``model.9``.
+(``conv``, ``linear``) is ``model.9``. tpucv's ``YoloV3`` tree (``c0``,
+``down{s}``, ``res{s}_{r}``, ``y5_a0`` ...) keeps its names too.
 
 The family is told by the tree's top-level names.
 """
@@ -245,7 +246,8 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     arrays -> the port's ``state_dict`` (f32 tensors; the quant buffers
     int8 and f32): ``Yolo8`` with any of its heads (ultralytics key names),
     ``Yolo7``, ``SSD``, ``CenterNet`` or ``DeeplabV3Plus`` (the
-    reference's), or ``ViT`` (tpucv's). Loads with ``strict=True``."""
+    reference's), or ``ViT`` or ``YoloV3`` (tpucv's). Loads with
+    ``strict=True``."""
     top = variables.get("params", {})
     centernet = "dla" in top
     deeplab = "aspp" in top
@@ -253,7 +255,8 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
                _ssd_name if "vgg0_conv" in top else
                _centernet_name if centernet else
                _deeplab_name if deeplab else
-               ".".join if "pos_embed" in top else _torch_name)
+               ".".join if "pos_embed" in top or "down0" in top else
+               _torch_name)
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, v in _walk(variables.get(coll, {})):

@@ -1,7 +1,7 @@
 """Per-model configs (counterpart of ``tpucv/configs/model_cfgs.py``), with
 tpucv's hyperparameter values: all nine registered families, YOLOv8
 detect, seg, pose and cls, YOLOv7, SSD, CenterNet, DeepLabV3+ and
-ViT."""
+ViT, and the unregistered legacy YOLOv3."""
 
 from __future__ import annotations
 
@@ -396,3 +396,40 @@ class Yolo8ClsConfig(BaseConfig):
     @property
     def num_classes(self) -> int:
         return self.n_classes
+
+
+# ---------------------------------------------------------- YOLOv3 (legacy)
+YOLO3_ANCHORS: Tuple[Tuple[int, int], ...] = (
+    (10, 13), (16, 30), (33, 23),
+    (30, 61), (62, 45), (59, 119),
+    (116, 90), (156, 198), (373, 326),
+)
+
+
+@dataclass
+class Yolo3Arch:
+    anchors: Tuple[Tuple[int, int], ...] = YOLO3_ANCHORS
+    anchor_mask: Tuple[Tuple[int, ...], ...] = ((6, 7, 8), (3, 4, 5),
+                                                (0, 1, 2))
+    strides: Tuple[int, ...] = (32, 16, 8)
+
+
+@dataclass
+class Yolo3Config(BaseConfig):
+    """Darknet-53 YOLOv3 at 416², COCO (tpucv's ``Yolo3Config``). Not
+    registered, as in tpucv: build it directly and train it through
+    ``trainer.yolov3_train.Yolo3Trainer``."""
+
+    arch: Yolo3Arch = field(default_factory=Yolo3Arch)
+    dataset: DatasetCfg = field(default_factory=lambda: DatasetCfg(
+        name="coco", input_size=416, max_num_boxes=100))
+    decode: DecodeCfg = field(default_factory=lambda: DecodeCfg(
+        conf_threshold=0.5, iou_threshold=0.45, max_det=100))
+
+    @property
+    def model_name(self) -> str:
+        return "yolov3"
+
+    @property
+    def num_classes(self) -> int:
+        return get_dataset_cfg(self.dataset.name)["num_classes"]

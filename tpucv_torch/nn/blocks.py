@@ -35,6 +35,19 @@ def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
     return k // 2 if p is None else p
 
 
+class GroupRef:
+    """A process group held by a module. A deep copy of the module shares
+    it: process groups cannot be copied, and the copy runs in the same
+    world."""
+    __slots__ = ("group",)
+
+    def __init__(self, group=None):
+        self.group = group
+
+    def __deepcopy__(self, memo):
+        return self
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode keeps flax's running statistics.
 
@@ -48,15 +61,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     input. Eval mode, the keys and the ``state_dict`` are
     ``nn.BatchNorm2d``'s.
 
-    Under data parallelism (``set_data_parallel`` with a world of W > 1
-    ranks, each holding its rows of the global batch) the statistics are
-    the global batch's, as tpucv's are under a data mesh, where XLA reduces
-    across it: the per-channel sums and the count, then the sums of
-    squared deviations from the global mean, are all-reduced (in f32,
+    Under data parallelism (``set_data_parallel`` with W > 1 ranks, each
+    holding its rows, or under spatial partitioning its rows of the
+    height, of the global batch) the statistics are the global batch's,
+    as tpucv's are under a mesh, where XLA reduces across it: the
+    per-channel sums and the count, then the sums of squared deviations
+    from the global mean, are all-reduced over ``dp_group`` (in f32,
     differentiably), and the global biased variance normalises and feeds
     the running statistics."""
 
     dp_world = 1            # ranks of the data mesh (set_data_parallel)
+    dp_group = GroupRef()   # their process group (None: the world)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -84,11 +99,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         xf = x.float()
         local = torch.cat([xf.sum((0, 2, 3)),
                            xf.new_full((1,), x.numel() // C)])
-        total = all_reduce(local)
+        total = all_reduce(local, self.dp_group.group)
         count = total[C]
         mean = total[:C] / count
         d = xf - mean[None, :, None, None]
-        var = all_reduce(d.square().sum((0, 2, 3))) / count
+        var = all_reduce(d.square().sum((0, 2, 3)),
+                         self.dp_group.group) / count
         y = d * torch.rsqrt(var + self.eps)[None, :, None, None]
         y = y * self.weight[None, :, None, None] \
             + self.bias[None, :, None, None]
@@ -137,13 +153,15 @@ def seed_dropout(model: nn.Module, seed: int) -> None:
             m.seed = seed
 
 
-def set_data_parallel(model: nn.Module, world: int, rank: int) -> None:
+def set_data_parallel(model: nn.Module, world: int, rank: int,
+                      group=None) -> None:
     """Tell ``model``'s BatchNorms and dropouts that its train-mode input
-    is rank ``rank``'s rows of a global batch split over ``world`` ranks
-    (``world=1``: the whole batch, one process)."""
+    is rank ``rank``'s rows of a global batch split over the ``world``
+    ranks of ``group`` (None: the whole world; ``world=1``: the whole
+    batch, one process)."""
     for m in model.modules():
         if isinstance(m, BatchNorm2d):
-            m.dp_world = world
+            m.dp_world, m.dp_group = world, GroupRef(group)
         elif isinstance(m, StepDropout):
             m.dp_world, m.dp_rank = world, rank
 
@@ -292,11 +310,16 @@ class SPPF(nn.Module):
         self.cv2 = ConvBnAct(c_ * 4, out_ch, 1, 1)
         self.k = k
 
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """One k x k stride-1 max pool (``parallel.spatial`` replaces it
+        with its halo-exchanging twin)."""
+        return max_pool_same(x, self.k)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.cv1(x)
-        y1 = max_pool_same(y, self.k)
-        y2 = max_pool_same(y1, self.k)
-        y3 = max_pool_same(y2, self.k)
+        y1 = self.pool(y)
+        y2 = self.pool(y1)
+        y3 = self.pool(y2)
         return self.cv2(torch.cat([y, y1, y2, y3], 1))
 
 

@@ -16,7 +16,13 @@ Each rank feeds its rows of the global ``--batch-size`` (which N must
 divide), and the step equals one process's step on the global batch
 (``train.state.make_train_step``); the config's ``train.zero_opt``
 partitions Adam's moments over the ranks (ZeRO-1). Rank 0 writes the logs
-and checkpoints.
+and checkpoints. ``--n-model M`` lays the N ranks out as tpucv's ``(data,
+model)`` mesh of N/M x M: the conv kernels of 65,536 elements or more are
+sharded over the M ranks of a data index (``parallel.mesh.shard_model``),
+which feed the same rows:
+
+    torchrun --nproc_per_node=4 -m tpucv_torch.train --model yolo8_det \
+        --n-model 2
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ def main(argv=None):
                         help="stop after N optimizer steps (smoke runs)")
     parser.add_argument("--n-model", type=int, default=None,
                         help="model-axis size of tpucv's (data, model) "
-                             "mesh; only 1 (channel sharding is not "
-                             "ported: ROADMAP queue 1 item 14b)")
+                             "mesh: the ranks that share each large conv "
+                             "kernel's output channels (it must divide "
+                             "the world size)")
     parser.add_argument("--batch-size", type=int, default=None,
                         help="override cfg.train.batch_size")
     parser.add_argument("--device", type=str, default="cuda",

@@ -13,10 +13,13 @@ No GradScaler: the step is bf16.
 Data parallelism (``parallel.mesh``): under a world of W > 1 ranks the
 step takes this rank's rows of the global batch (``DataMesh.rows``), runs
 the network on them with global-batch BatchNorm, gathers the head's
-outputs and the targets of every rank, runs the loss on the global batch,
-and sums the gradients over the ranks, so that it equals one
-process's step on the global batch. ``TrainState.create(zero_opt=True)``
-partitions Adam's moments over the ranks (ZeRO-1).
+outputs and the targets of every rank of its data group, runs the loss on
+the global batch, and sums the gradients over the data axis, so that it
+equals one process's step on the global batch. On a mesh with a model
+axis the large conv kernels are sharded (``parallel.mesh.shard_model``)
+and gather their channels in the forward.
+``TrainState.create(zero_opt=True)`` partitions Adam's moments over the
+data group (ZeRO-1).
 """
 
 from __future__ import annotations
@@ -58,17 +61,24 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, lr: Union[float, Schedule] = 1e-3,
                use_ema: bool = False, weight_decay: float = 0.0,
-               zero_opt: bool = False) -> "TrainState":
+               zero_opt: bool = False,
+               mesh: Optional[pmesh.DataMesh] = None) -> "TrainState":
         """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8); ``lr``
         is a constant or a ``step -> lr`` schedule (``train.schedules``).
         ``weight_decay`` adds ``wd * p`` to each gradient before Adam, as
         ``optax.chain(optax.add_decayed_weights(wd), optax.adam(lr))``
         does. ``zero_opt``: ZeRO-1, the moments partitioned over the ranks
-        of the process group (``parallel.mesh.zero_adam``)."""
+        of ``mesh``'s data group, or of the process group without ``mesh``
+        (``parallel.mesh.zero_adam``); on a mesh of one data index there is
+        nothing to partition, and the moments stay whole, as tpucv's
+        ``opt_state_sharding_rule`` leaves them. A sharded kernel's moments
+        and EMA are its slice's, as tpucv's ``plan_state_shardings`` lays
+        them out."""
         schedule = lr if callable(lr) else (lambda step: lr)
         params = [p for p in model.parameters() if p.requires_grad]
-        if zero_opt:
-            opt = pmesh.zero_adam(params, schedule(0), weight_decay)
+        if zero_opt and (mesh is None or mesh.n_data > 1):
+            opt = pmesh.zero_adam(params, schedule(0), weight_decay,
+                                  None if mesh is None else mesh.data_group)
         else:
             opt = torch.optim.Adam(params, lr=schedule(0),
                                    betas=(0.9, 0.999), eps=1e-8,
@@ -80,19 +90,22 @@ class TrainState:
     @classmethod
     def from_config(cls, model: nn.Module, opt: OptimizerCfg,
                     iters_per_epoch: int = 1,
-                    zero_opt: bool = False) -> "TrainState":
+                    zero_opt: bool = False,
+                    mesh: Optional[pmesh.DataMesh] = None) -> "TrainState":
         """The optimizer of a config's ``optimizer`` section, as tpucv's
         trainer builds it (``set_optimizer``): Adam at ``warmup_multistep``
         of ``lr`` (milestones in epochs of ``iters_per_epoch`` steps) with
         ``weight_decay``, and an EMA when ``ema_decay`` > 0; the train
-        step takes ``opt.ema_decay``. ``zero_opt`` as in ``create``."""
+        step takes ``opt.ema_decay``. ``zero_opt`` and ``mesh`` as in
+        ``create``."""
         if opt.name != "adam":
             raise ValueError(f"optimizer {opt.name!r}: only adam is ported")
         schedule = warmup_multistep(
             opt.lr, opt.warmup_iters,
             [m * iters_per_epoch for m in opt.milestones], opt.gamma)
         return cls.create(model, schedule, use_ema=opt.ema_decay > 0,
-                          weight_decay=opt.weight_decay, zero_opt=zero_opt)
+                          weight_decay=opt.weight_decay, zero_opt=zero_opt,
+                          mesh=mesh)
 
     def apply_gradients(self, ema_decay: float = 0.0) -> None:
         """One Adam update at ``schedule(step)`` from the gradients in the
@@ -155,12 +168,15 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
 
     ``mesh``: a ``parallel.mesh.DataMesh`` of W > 1 ranks makes this the
     data-parallel step. ``batch`` is then this rank's rows of the global
-    batch (``mesh.rows(B, grad_accum)``: its share of each micro-batch, in
-    micro-batch order). Each micro-batch's forward runs on those rows with
-    global-batch BatchNorm and dropout masks; the head's outputs and the
-    targets of all ranks are gathered, the loss runs on the global
-    micro-batch, and after the backward the gradients (each rank's rows'
-    share of the global gradient) are summed over the ranks. Losses,
+    batch (``mesh.rows(B, grad_accum)``: its data index's share of each
+    micro-batch, in micro-batch order). Each micro-batch's forward runs on
+    those rows with global-batch BatchNorm and dropout masks; the head's
+    outputs and the targets of the data group are gathered, the loss runs
+    on the global micro-batch, and after the backward the gradients (each
+    rank's rows' share of the global gradient) are summed over the data
+    axis (``parallel.mesh.all_reduce_grads``). A model whose kernels
+    ``shard_model`` sharded over the mesh's model axis computes and
+    gathers their channel slices in the forward. Losses,
     gradients, parameters, BatchNorm statistics and the EMA are then those
     of one process's step on the global batch, up to f32 rounding (the
     sums run in another order). Without ``mesh``, or with
@@ -193,7 +209,8 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
              lap: Callable[[str], None] = _no_lap):
         model = state.model.train()
         if dp and model not in marked:
-            set_data_parallel(model, mesh.world, mesh.rank)
+            set_data_parallel(model, mesh.n_data, mesh.data_index,
+                              mesh.data_group)
             marked.add(model)
         batch = _to(batch, dev)
         state.optimizer.zero_grad(set_to_none=True)
@@ -217,7 +234,7 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
             metrics = {k: torch.stack([m[k] for m in metricss]).mean()
                        for k in metricss[0]}
         if dp:
-            pmesh.all_reduce_grads(state.params.values())
+            pmesh.all_reduce_grads(state.params.values(), mesh)
         state.apply_gradients(ema_decay)
         lap("optimizer_ema")
         metrics["loss"] = loss

@@ -20,8 +20,12 @@ Deltas from tpucv:
     ranks wait at a barrier. tpucv shrinks its data axis to a divisor of
     the batch; a torchrun world cannot shrink, so a world size that does
     not divide the batch (and each micro-batch) is refused by name.
-    ``train.n_model > 1`` (channel sharding) is refused too, citing ROADMAP
-    queue 1 item 14b;
+    ``train.n_model > 1`` lays the ranks out as tpucv's ``(data, model)``
+    mesh (``parallel.mesh.DataMesh``; ``n_model`` must divide the world
+    size, as tpucv's must divide the device count): the large conv
+    kernels are sharded over the model axis (``shard_model``) and each
+    data index's ranks feed the same rows. Evaluation runs on rank 0 on a
+    copy with whole kernels (``parallel.mesh.unsharded``);
   * the train state is built once, in ``set_optimizer``, and a resume
     loads into it in place;
   * the device-augmentation seed is the global step, so a resumed run
@@ -45,6 +49,7 @@ from tpucv_torch.algorithms.base import resolve_device
 from tpucv_torch.ckpt.checkpoint import CheckPoint
 from tpucv_torch.ops.augment import AffineParams, augment_batch
 from tpucv_torch.ops.preprocess import normalize_images
+from tpucv_torch.parallel import mesh as pmesh
 from tpucv_torch.parallel import multihost
 from tpucv_torch.parallel.mesh import DataMesh, rank_device
 from tpucv_torch.train.state import (TrainState, make_eval_step,
@@ -69,14 +74,6 @@ class MeanMetric:
         self.total, self.count = 0.0, 0
 
 
-def _refuse_unported(cfg) -> None:
-    t = cfg.train
-    if t.n_model > 1:
-        raise NotImplementedError(
-            f"train.n_model={t.n_model}: channel sharding over a model axis "
-            f"is not ported (ROADMAP queue 1 item 14b); use n_model=1")
-
-
 def _barrier() -> None:
     if dist.is_initialized():
         dist.barrier()
@@ -93,10 +90,9 @@ class BaseTrainer:
     DEVICE_AUG = True
 
     def __init__(self, cfg, device="cuda"):
-        _refuse_unported(cfg)
         self.cfg = cfg
         multihost.initialize()
-        self.mesh = DataMesh.current()
+        self.mesh = DataMesh.current(max(1, cfg.train.n_model))
         self.mesh.check_batch(cfg.train.batch_size,
                               max(1, cfg.train.grad_accum))
         self.device = resolve_device(rank_device(device))
@@ -137,11 +133,13 @@ class BaseTrainer:
             else:
                 print(f"WARNING: pretrained_weights {pw!r} not found — "
                       f"training from scratch")
+        pmesh.shard_model(self.model, self.mesh)
 
     def set_optimizer(self):
         self.state = TrainState.from_config(
             self.model, self.cfg.optimizer, max(len(self.train_loader), 1),
-            zero_opt=self.cfg.train.zero_opt and dist.is_initialized())
+            zero_opt=self.cfg.train.zero_opt and dist.is_initialized(),
+            mesh=self.mesh)
         self.lr_schedule = self.state.schedule
 
     def set_criterion(self):
@@ -309,10 +307,11 @@ class BaseTrainer:
                 f"epoch {epoch} done in {time.time() - t_ep:.1f}s "
                 f"(means over logged steps: {ep_means})")
             if (epoch + 1) % cfg.train.eval_interval == 0:
+                whole = self._unsharded(state)      # collective
                 if multihost.is_primary():
-                    val = self.evaluate_loop(state)
+                    val = self.evaluate_loop(whole)
                     if cfg.train.eval_map:
-                        val.update(self.evaluate_map(state))
+                        val.update(self.evaluate_map(whole))
                     self.last_eval = val
                     self.logger.info(f"eval epoch {epoch}: {val}")
                     if self.tb:
@@ -330,6 +329,20 @@ class BaseTrainer:
         self.logger.info(f"saved final {final}")
         _barrier()                # the file is there before any rank returns
         return state
+
+    @staticmethod
+    def _unsharded(state: TrainState) -> TrainState:
+        """``state`` with whole kernels and EMA, which one rank can run
+        alone (collective when kernels are sharded over the model axis:
+        every rank calls it); ``state`` itself otherwise."""
+        shards = pmesh.model_shards(state.model)
+        if not shards:
+            return state
+        whole = copy.copy(state)
+        whole.model = pmesh.unsharded(state.model)
+        whole.ema = (None if state.ema is None else
+                     pmesh.whole_tensors(state.ema, shards))
+        return whole
 
     def _ckpt_path(self, epoch: int, final: bool = False) -> str:
         tag = "final" if final else f"epoch-{epoch}"
