@@ -17,7 +17,10 @@ gloo on the card, a ZeRO-1 checkpoint resumed in one process), the bench
 at YOLOv8 s/m/l/x and the shipped YOLOv7-x and SSD512; then the mesh's
 model axis (channel-sharded YOLOv8x training), batch-sharded inference
 and spatial partitioning on two gloo ranks, and the legacy YOLOv3
-through its forward, loss, trainer, predict and evaluate.
+through its forward, loss, trainer, predict and evaluate; then the rest
+of the zoo (VGG16-BN, MobileNetV2, UNet, CPM and the twenty blocks),
+the YOLO-style batched_non_max_suppression through nms_keep,
+convert_model and utils/profile.py.
 
     python3 chip_smoke.py
 
@@ -402,10 +405,44 @@ script started); any failure exits non-zero:
             on the serve images (conf 0.5, K = 4096: the scan) and
             evaluate_on_coco on a COCO root written here (64 JPEGs, a PNG;
             B=32, conf 0.001, K = 4096); nms_keep's count 0 on both.
+75. zoo_parity  VGG16-BN, MobileNetV2 (width 1, nc 1000), UNet (nc 21)
+            and CPM (18 keypoints, 19 limbs, 6 stages), full width,
+            seed-0 weights, f32 (TF32 off), B=2 at 64² (UNet also at
+            46², which 16 does not divide): card against CPU in eval and
+            train mode, outputs and BN running statistics within ZOO_REL;
+            then the twenty blocks of nn/blocks.py at narrow widths the
+            same way.
+76. zoo_forward  in a fresh process (the profiler misses kernels late
+            in this one), each network bf16, channels_last, eval:
+            VGG16-BN and MobileNetV2 224² B=64, UNet 512² B=8, CPM 368²
+            B=16: ms a batch (CUDA events), kernel ms and launches
+            (torch.profiler), peak memory above the weights and input,
+            GFLOP an image (FlopCounterMode) and the share of the dense
+            bf16 peak.
+77. zoo_nms  batched_non_max_suppression on nms_cases.yolo_pred_case
+            (B=8, A=8,400, nc=80), card against the CPU's plain route
+            (valid, boxes and scores bit-equal, classes where valid): at
+            pre_nms_topk 1,024 one nms_keep launch for the batch, class-
+            aware and agnostic, the keep mask held against its plain
+            version and timed (kernel_time zoo_nms_B8_K1024); at 2,048
+            the scan, none; an Ensemble of two YOLOv8n (seeds 0 and 1,
+            sharpened) on 8 serve images, A = 16,800, one launch.
+78. convert_model  python -m tpucv_torch.convert_model on the trainer
+            phase's checkpoint: pure weights equal to the bundle's,
+            served by the predict CLI (nms_keep 5 for 5 images); with
+            --int8 (16 synthetic images): the quantized conv count, the
+            predict and evaluate CLIs loading the file and running its
+            int8 convs (COCO root of 65 images, K = 4096: the scan).
+79. profile  utils/profile.py: Profile around UNet's bf16 B=8 512²
+            forward without and with fence (the unfenced span the
+            shorter), .t the sum of the spans; in a fresh process, trace
+            around batched_non_max_suppression (B=8, K=1,024, one
+            launch): its trace.json names nms_build_kernel and
+            nms_walk_kernel.
 
 The line before the last holds {"kernels": [...]} (nms_keep, with its
 launches on every path that runs it, the int8, YOLOv7, SSD, CenterNet,
-DeepLab and classification ones included (CenterNet's, the DIoU scan,
+DeepLab, classification and zoo ones included (CenterNet's, the DIoU scan,
 and DeepLab's and the classifiers', no NMS, all 0), add_one, conv3x3);
 the last line is
 {"ok": true, "device": {...}}. The whole output is also written to
@@ -483,6 +520,12 @@ MODEL_AXIS_SIZE = 320       # its input (full width, a reduced input)
 MODEL_AXIS_BATCH = 2
 MODEL_AXIS_STEPS = 2
 SHARDED_INFER_BATCH = 8
+ZOO_REL = 1e-4              # the zoo's f32 outputs and BN statistics,
+                            # card against CPU, of each one's largest value
+ZOO = {"vgg16_bn": (64, (64, 224)),    # name: f32 parity size, bf16 (B, S)
+       "mobilenet_v2": (64, (64, 224)),
+       "unet": (46, (8, 512)),          # 46: a size 16 does not divide
+       "cpm": (64, (16, 368))}
 SPATIAL_SIZE = 640          # YOLOv8n's input under the height split
 SPATIAL_REL = 2e-4          # tpucv's spatial bound (tests/test_parallel.py
 #                             :326-329), outputs and gradients against one
@@ -5556,6 +5599,525 @@ class Smoke:
               "nvidia_smi": nvidia_smi()})
         return launches
 
+    # ------------------------------------------------- the rest of the zoo
+    def zoo_network(self, name, seed=0):
+        """One of the zoo's networks (ZOO) at full width with seed-0
+        weights, on the CPU."""
+        from tpucv_torch.models import extras, openpose
+
+        model = {"vgg16_bn": lambda: extras.VGG(16),
+                 "mobilenet_v2": lambda: extras.MobileNetV2(1000, 1.0),
+                 "unet": lambda: extras.UNet(21),
+                 "cpm": lambda: openpose.CPM(18, 19, 6)}[name]()
+        return model.reset_parameters(
+            self.torch.Generator().manual_seed(seed))
+
+    def zoo_blocks(self):
+        """The twenty blocks at narrow widths, torch's default init drawn
+        after ``manual_seed(0)``: (name, block, NCHW input shape)."""
+        from tpucv_torch.nn import blocks as tb
+
+        self.torch.manual_seed(0)
+        return [
+            ("DWConv", tb.DWConv(8, 16, 3, 2), (2, 8, 16, 16)),
+            ("C1", tb.C1(8, 16, 2), (2, 8, 16, 16)),
+            ("C2", tb.C2(8, 16, 2), (2, 8, 16, 16)),
+            ("C3", tb.C3(8, 16, 2), (2, 8, 16, 16)),
+            ("C3x", tb.C3x(8, 16, 2), (2, 8, 16, 16)),
+            ("SPP", tb.SPP(16, 16), (2, 16, 16, 16)),
+            ("Focus", tb.Focus(4, 16, 3), (2, 4, 16, 16)),
+            ("GhostConv", tb.GhostConv(8, 16, 3, 2), (2, 8, 16, 16)),
+            ("GhostBottleneck", tb.GhostBottleneck(8, 16, 3, 2),
+             (2, 8, 16, 16)),
+            ("ChannelAttention", tb.ChannelAttention(8), (2, 8, 16, 16)),
+            ("SpatialAttention", tb.SpatialAttention(7), (2, 8, 16, 16)),
+            ("CBAM", tb.CBAM(8, 7), (2, 8, 16, 16)),
+            ("ConvTransposeBnAct", tb.ConvTransposeBnAct(8, 12, 3, 2),
+             (2, 8, 8, 8)),
+            ("TransformerLayer", tb.TransformerLayer(16, 4), (2, 10, 16)),
+            ("TransformerBlock", tb.TransformerBlock(8, 16, 4, 2),
+             (2, 8, 8, 8)),
+            ("BottleneckCSP", tb.BottleneckCSP(8, 16, 2), (2, 8, 16, 16)),
+            ("C3TR", tb.C3TR(8, 16, 1), (2, 8, 8, 8)),
+            ("C3Ghost", tb.C3Ghost(8, 16, 2), (2, 8, 16, 16)),
+            ("DWConvTranspose2d", tb.DWConvTranspose2d(8, 12, 3, 2, 1, 1),
+             (2, 8, 6, 5)),
+            ("Ensemble", tb.Ensemble([tb.Focus(4, 6), tb.Focus(4, 6)]),
+             (2, 4, 8, 8)),
+        ]
+
+    def _card_vs_cpu(self, model, x, train):
+        """``model`` (on the CPU) and a copy on the card (channels_last for
+        4-D inputs) in ``train`` mode on ``x``: each output's largest
+        difference over its largest |value|, and afterwards each running
+        variance's over its largest value and each running mean's over
+        the largest running standard deviation of its BatchNorm (a mean
+        that is 0 but for rounding has no scale of its own)."""
+        import copy
+
+        torch = self.torch
+        if isinstance(model, torch.nn.Module):
+            model.train(train)
+            card = copy.deepcopy(model).to(self.dev)
+            if x.dim() == 4:
+                card = card.to(memory_format=torch.channels_last)
+        else:                                        # an Ensemble
+            for m in model.members:
+                m.train(train)
+            card = type(model)([copy.deepcopy(m).to(self.dev)
+                                for m in model.members])
+        with torch.no_grad():
+            ref, got = model(x), card(x.to(self.dev))
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        got = got if isinstance(got, tuple) else (got,)
+        out = [float((g.float().cpu() - r).abs().max() / r.abs().max())
+               for g, r in zip(got, ref)]
+        check(all(bool(torch.isfinite(g).all()) and g.shape == r.shape
+                  for g, r in zip(got, ref)), "non-finite or misshapen")
+        stats = 0.0
+        if train and isinstance(model, torch.nn.Module):
+            csd, sd = card.state_dict(), model.state_dict()
+            for k, v in sd.items():
+                if k.endswith(("running_mean", "running_var")):
+                    var = sd[k.replace("running_mean", "running_var")]
+                    scale = var.max() if k.endswith("var") else \
+                        var.max().sqrt()
+                    stats = max(stats, float((csd[k].cpu() - v).abs().max()
+                                             / scale))
+        return max(out), stats
+
+    def phase_zoo_parity(self):
+        """VGG16-BN, MobileNetV2 (width 1, nc 1000), UNet (nc 21) and CPM
+        (18 keypoints, 19 limbs, 6 stages), full width, seed-0 weights, f32
+        (TF32 off), B=2 at 64² (UNet at 46², which 16 does not divide, and
+        at 64²): the card against the CPU in eval and train mode, every
+        output and every running statistic within ZOO_REL of its largest
+        |value|; then the twenty blocks at narrow widths the same way.
+        nms_keep's count 0."""
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        torch = self.torch
+        nms_keep.launches = 0                # just before the path
+        rows = {}
+        models = {name: self.zoo_network(name) for name in ZOO}
+        cases = [(name, models[name], s) for name, (s, _) in ZOO.items()]
+        cases.append(("unet_64", models["unet"], 64))
+        for name, model, s in cases:
+            x = torch.from_numpy(np.random.default_rng(3).normal(
+                0, 1, (2, 3, s, s)).astype(np.float32))
+            for train in (False, True):
+                rows[f"{name}_{'train' if train else 'eval'}"] = \
+                    self._card_vs_cpu(model, x, train)
+        for name, block, shape in self.zoo_blocks():
+            x = torch.from_numpy(np.random.default_rng(4).normal(
+                0, 1, shape).astype(np.float32))
+            for train in (False, True):
+                rows[f"{name}_{'train' if train else 'eval'}"] = \
+                    self._card_vs_cpu(block, x, train)
+        launches = nms_keep.launches         # just after
+        worst = max(max(v) for v in rows.values())
+        emit({"phase": "zoo_parity", "cases": len(rows),
+              "max_rel_err_output_and_stats": rows, "worst": worst,
+              "nms_keep_launches": launches, "nvidia_smi": nvidia_smi()})
+        check(worst <= ZOO_REL, f"zoo_parity: the card parts from the CPU "
+                                f"by {worst} of the largest value")
+        check(launches == 0, f"zoo_parity: nms_keep launched {launches}")
+        return launches
+
+    def in_fresh_process(self, method, *args):
+        """``Smoke.<method>(*args)`` run by a new Python process (from the
+        repository's root) and its JSON result: the profiler's CUDA
+        records, taken late in this long process, miss kernels (a whole
+        run of this script on an NVIDIA H100 80GB HBM3 at 700 W read 1.92
+        ms of kernels for a 7.8 ms forward there, and an NMS trace
+        without the NMS kernels), and the card's peak memory there holds
+        the earlier phases' tensors."""
+        code = ("import json, sys, torch\n"
+                "sys.path.insert(0, sys.argv[1])\n"
+                "import chip_smoke\n"
+                "out = getattr(chip_smoke.Smoke(torch), sys.argv[2])("
+                "*json.loads(sys.argv[3]))\n"
+                "print(json.dumps(out))\n")
+        r = subprocess.run([sys.executable, "-c", code, str(ROOT), method,
+                            json.dumps(args)], cwd=ROOT, capture_output=True,
+                           text=True, timeout=600)
+        check(r.returncode == 0, f"{method}: the fresh process failed: "
+                                 f"{r.stderr[-2000:]}")
+        return json.loads(r.stdout.strip().splitlines()[-1])
+
+    def zoo_forward_rows(self, reps=10):
+        """Each network as it would serve (bf16 autocast, channels_last,
+        eval mode; ZOO's sizes): ms a batch (CUDA events, after a warm-up
+        call), the kernels' ms and launches a call (torch.profiler), peak
+        memory, GFLOP an image (FlopCounterMode, from the ops' shapes)
+        and the share of the dense bf16 peak that the batch's FLOPs over
+        its ms reach; nms_keep's count over them."""
+        from torch.profiler import ProfilerActivity, profile
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.probes.common import H100_BF16_FLOPS, timed
+
+        torch = self.torch
+        nms_keep.launches = 0                # just before the path
+        rows = {}
+        for name, (_, (B, S)) in ZOO.items():
+            model = self.zoo_network(name).to(
+                self.dev, memory_format=torch.channels_last).eval()
+            x = torch.rand((B, 3, S, S), device=self.dev).to(
+                memory_format=torch.channels_last)
+            with torch.inference_mode(), \
+                    torch.autocast("cuda", dtype=torch.bfloat16):
+                with FlopCounterMode(display=False) as fc:
+                    model(x[:1])
+                self.sync()
+                base = torch.cuda.memory_allocated(self.dev)
+                torch.cuda.reset_peak_memory_stats(self.dev)
+                ms = timed(lambda: model(x), reps, self.dev)
+                peak = torch.cuda.max_memory_allocated(self.dev) - base
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = model(x)
+                    self.sync()
+            events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernel_ms = sum(e.device_time_total for e in events
+                            if e.device_time_total > 0) / 1e3
+            out = out if isinstance(out, tuple) else (out,)
+            check(all(bool(torch.isfinite(o).all()) for o in out),
+                  f"zoo_forward {name}: non-finite output")
+            gflop = fc.get_total_flops() / 1e9
+            rows[name] = {"B": B, "S": S, "ms_per_batch": ms,
+                          "img_per_s": B / ms * 1e3,
+                          "kernel_ms": kernel_ms or None,
+                          "kernel_launches": len(events),
+                          "peak_mem_gib_above_weights_and_input":
+                              peak / 2 ** 30,
+                          "gflop_per_image": gflop,
+                          "bf16_peak_share": gflop * 1e9 * B
+                          / (ms / 1e3) / H100_BF16_FLOPS,
+                          "out_shapes": [list(o.shape) for o in out]}
+            del model, x, out
+            torch.cuda.empty_cache()
+        return {"networks": rows, "nms_keep_launches": nms_keep.launches}
+
+    def phase_zoo_forward(self, reps=10):
+        """zoo_forward_rows in a fresh process (in_fresh_process): VGG16-BN
+        and MobileNetV2 at 224² B=64, UNet at 512² B=8, CPM at 368² B=16,
+        bf16; outputs finite, nms_keep's count 0."""
+        r = self.in_fresh_process("zoo_forward_rows", reps)
+        emit({"phase": "zoo_forward", "process": "fresh", **r,
+              "nvidia_smi": nvidia_smi()})
+        check(r["nms_keep_launches"] == 0,
+              f"zoo_forward: nms_keep launched {r['nms_keep_launches']}")
+        return r["nms_keep_launches"]
+
+    def _recorded_dispatch(self, fn):
+        """``fn()`` with ``ops.nms.dispatch_batched_nms`` recording its
+        inputs; returns (fn's result, [(off_boxes, scores, iou)])."""
+        from tpucv_torch.ops import nms as nms_mod
+
+        seen, real = [], nms_mod.dispatch_batched_nms
+
+        def recording(off, scores, iou, max_det):
+            seen.append((off, scores, iou))
+            return real(off, scores, iou, max_det)
+
+        nms_mod.dispatch_batched_nms = recording
+        try:
+            return fn(), seen
+        finally:
+            nms_mod.dispatch_batched_nms = real
+
+    def _nms_equal_cpu(self, pred, topk, tag, agnostic=False):
+        """batched_non_max_suppression on ``pred`` on the card (nms_keep's
+        count zeroed just before, read just after) and on the CPU's plain
+        route: valid and boxes, scores equal bit for bit, classes where
+        valid. Returns (launches, the card's candidates, kept)."""
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.nms import batched_non_max_suppression
+
+        torch = self.torch
+        pred_c = pred.cpu()
+
+        def run():
+            out = batched_non_max_suppression(pred, 0.25, 0.45, 300, topk,
+                                              agnostic)
+            self.sync()
+            return out
+
+        nms_keep.launches = 0                # just before the path
+        got, seen = self._recorded_dispatch(run)
+        launches = nms_keep.launches         # just after
+        ref = batched_non_max_suppression(pred_c, 0.25, 0.45, 300, topk,
+                                          agnostic)
+        valid = ref[3]
+        check(torch.equal(got[3].cpu(), valid) and bool(valid.any()),
+              f"{tag}: the valid slots differ from the CPU's")
+        for name, g, r in (("boxes", got[0], ref[0]),
+                           ("scores", got[1], ref[1])):
+            check(torch.equal(g.cpu(), r), f"{tag}: {name} differ from the "
+                                           f"CPU's plain route")
+        check(torch.equal(got[2].cpu()[valid], ref[2][valid]),
+              f"{tag}: classes differ from the CPU's")
+        return launches, seen, int(valid.sum())
+
+    def phase_zoo_nms(self, algo, imgs, B=8, A=8400, nc=80):
+        """batched_non_max_suppression (YOLO-style: best class, gate 0.25,
+        top-k, xywh -> xyxy, class offsets, greedy keep at IoU 0.45,
+        max_det 300) on ``nms_cases.yolo_pred_case`` at B=8, A=8,400,
+        nc=80 (clustered boxes, tied scores and classes), card against the
+        CPU's plain route: at pre_nms_topk 1,024 nms_keep launches once for
+        the batch (its keep mask then held against its plain version on
+        the recorded candidates, and timed), class-aware and agnostic; at
+        2,048 the scan, no launch. Then an Ensemble of two YOLOv8n (seeds 0
+        and 1, class branch sharpened), each member its forward (bf16
+        autocast) and decode (raw_to_pred), on 8 letterboxed serve images:
+        A = 16,800, one launch, equal to the CPU's plain route."""
+        from tpucv_torch.decode.yolov8 import raw_to_pred
+        from tpucv_torch.nn.blocks import Ensemble
+        from tpucv_torch.ops.nms_cases import yolo_pred_case
+        from tpucv_torch.ops.preprocess import normalize_images
+
+        torch = self.torch
+        pred = torch.from_numpy(yolo_pred_case(0, B, A, nc)).to(self.dev)
+        launches, row = {}, {}
+        for tag, topk, agnostic in (("K1024", 1024, False),
+                                    ("K1024_agnostic", 1024, True),
+                                    ("K2048_scan", 2048, False)):
+            n, seen, kept = self._nms_equal_cpu(pred, topk, f"zoo_nms {tag}",
+                                                agnostic)
+            launches[tag] = n
+            row[tag] = {"K": topk, "kept": kept, "nms_keep_launches": n}
+            check(n == (1 if topk <= 1024 else 0),
+                  f"zoo_nms {tag}: nms_keep launched {n} times")
+            check(len(seen) == 1, f"zoo_nms {tag}: {len(seen)} dispatches "
+                                  f"for one batch")
+            if tag == "K1024":
+                off, scores, thr = seen[0]
+                kt = self.time_kernel(off.contiguous(), scores, thr,
+                                      "zoo_nms_B8_K1024")
+            elif topk <= 1024:
+                off, scores, thr = seen[0]
+                self.compare_keep(off.contiguous(), scores, thr,
+                                  f"zoo_nms {tag}")
+        with torch.inference_mode():
+            members = []
+            for seed in (0, 1):
+                m = algo.init_variables(seed=seed)
+                sharpen_(m)
+                members.append(lambda x, m=m: raw_to_pred(m(x), algo.nc))
+            ens = Ensemble(members)
+            x = normalize_images(self.letterboxed(algo, imgs[:8]),
+                                 torch.float32)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                epred = ens(x).float()
+        check(epred.shape == (8, 16800, 4 + algo.nc),
+              f"zoo_nms ensemble: {tuple(epred.shape)}")
+        n, _, kept = self._nms_equal_cpu(epred, 1024, "zoo_nms ensemble")
+        check(n == 1, f"zoo_nms ensemble: nms_keep launched {n} times")
+        launches["ensemble"] = n
+        row["ensemble"] = {"A": 16800, "K": 1024, "kept": kept,
+                           "nms_keep_launches": n}
+        emit({"phase": "zoo_nms", "B": B, "A": A, "nc": nc, "cases": row,
+              "nms_keep_ms_B8_K1024": kt["ms"],
+              "plain_ms_B8_K1024": kt["plain_ms"],
+              "bound_ms_B8_K1024": kt["bound_ms"],
+              "equal_to_cpu_plain_route": True, "nvidia_smi": nvidia_smi()})
+        return launches
+
+    def phase_convert_model(self, run, imgs):
+        """python -m tpucv_torch.convert_model on the trainer phase's
+        checkpoint: extract_from_checkpoint's pure weights equal to the
+        bundle's model weights, served by the predict CLI (5 images, conf
+        0.25: nms_keep once an image); then --int8 (calibrated on the 16
+        synthetic images, seed 7): the quantized conv count, and the
+        predict CLI and the evaluate CLI (the COCO root of 64 JPEGs and a
+        PNG, B=32, conf 0.001: the scan) loading it and running its int8
+        convs (quant.quantized_conv called), 12 finite stats."""
+        import os
+
+        import cv2
+
+        from tpucv_torch import convert_model as cm
+        from tpucv_torch import evaluate as eval_cli
+        from tpucv_torch import predict as predict_cli
+        from tpucv_torch import quant
+        from tpucv_torch.ckpt.checkpoint import CheckPoint
+        from tpucv_torch.ops.cuda_nms import nms_keep
+
+        torch = self.torch
+        base = ROOT / "saves" / "chip_smoke" / "convert_model"
+        base.mkdir(parents=True, exist_ok=True)
+        bundle = run["final_path"]
+        pure = str(base / "pure.ckpt")
+        t0 = time.perf_counter()
+        cm.main(["--model", "yolo8_det", "--src", bundle, "--dst", pure])
+        extract_s = time.perf_counter() - t0
+        want = CheckPoint.load_pure(bundle)
+        got = CheckPoint.load_pure(pure)
+        check(got.keys() == want.keys()
+              and all(torch.equal(got[k], want[k]) for k in want),
+              "convert_model: the pure weights differ from the bundle's")
+        srcs = []
+        for k, img in enumerate(imgs[:5]):
+            srcs.append(str(base / f"img{k}.jpg"))
+            check(cv2.imwrite(srcs[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
+                  f"could not write {srcs[-1]}")
+        nms_keep.launches = 0                # just before the path
+        res = predict_cli.main(["--model", "yolo8_det", "--ckpt", pure,
+                                "--src", *srcs, "--dst", str(base / "drawn")])
+        predict_launches = nms_keep.launches  # just after
+        check(len(res) == 5 and all(r["saved"] for r in res),
+              "convert_model: predict drew no file")
+        check(predict_launches == 5, f"convert_model predict: nms_keep "
+                                     f"launched {predict_launches}")
+
+        q = str(base / "int8.ckpt")
+        t0 = time.perf_counter()
+        cm.main(["--model", "yolo8_det", "--src", bundle, "--dst", q,
+                 "--int8"])
+        int8_s = time.perf_counter() - t0
+        n_int8 = sum(k.endswith(".qweight") for k in CheckPoint.load_pure(q))
+        check(n_int8 > 0, "convert_model --int8 quantized no conv")
+        calls, real = [], quant.quantized_conv
+        quant.quantized_conv = lambda *a: calls.append(1) or real(*a)
+        try:
+            nms_keep.launches = 0            # just before the path
+            res = predict_cli.main(["--model", "yolo8_det", "--ckpt", q,
+                                    "--src", *srcs,
+                                    "--dst", str(base / "drawn_int8")])
+            int8_predict_launches = nms_keep.launches
+            predict_calls = len(calls)
+            root = base / "coco"
+            n_img = write_coco_root(root, 64)
+            env_was, cwd = os.environ.get("TPUCV_COCO_ROOT"), os.getcwd()
+            os.environ["TPUCV_COCO_ROOT"] = str(root)
+            os.chdir(base)
+            try:
+                nms_keep.launches = 0        # just before the path
+                stats = eval_cli.main(["--model", "yolo8_det", "--dataset",
+                                       "coco", "--ckpt", q, "--batch-size",
+                                       "32"])
+                int8_eval_launches = nms_keep.launches
+            finally:
+                os.chdir(cwd)
+                if env_was is None:
+                    os.environ.pop("TPUCV_COCO_ROOT")
+                else:
+                    os.environ["TPUCV_COCO_ROOT"] = env_was
+        finally:
+            quant.quantized_conv = real
+        check(predict_calls > 0 and len(calls) > predict_calls,
+              f"convert_model: the int8 file ran {predict_calls} / "
+              f"{len(calls)} int8 convs in predict / evaluate")
+        check(len(stats) == 12 and all(np.isfinite(v)
+                                       for v in stats.values()),
+              f"convert_model evaluate: {stats}")
+        # the evaluate CLI's K (conf 0.001) is every anchor, at most 4096:
+        # the kernel's only where the input has at most 1,024 anchors
+        S = cm.export_from_registry("yolo8_det")[0].dataset.input_size
+        anchors = sum((S // st) ** 2 for st in (8, 16, 32))
+        eval_want = -(-n_img // 32) if anchors <= 1024 else 0
+        check(int8_predict_launches == 5
+              and int8_eval_launches == eval_want,
+              f"convert_model int8: nms_keep {int8_predict_launches}, "
+              f"{int8_eval_launches} (want 5, {eval_want})")
+        emit({"phase": "convert_model", "bundle": bundle,
+              "pure_equal_to_bundle": True, "extract_s": extract_s,
+              "predict_images": len(srcs),
+              "predict_nms_keep_launches": predict_launches,
+              "int8_convs": n_int8, "int8_convert_s": int8_s,
+              "int8_predict_int8_conv_calls": predict_calls,
+              "int8_predict_nms_keep_launches": int8_predict_launches,
+              "int8_evaluate_images": n_img, "int8_evaluate_stats": stats,
+              "int8_evaluate_nms_keep_launches": int8_eval_launches,
+              "nvidia_smi": nvidia_smi()})
+        return {"predict": predict_launches,
+                "int8_predict": int8_predict_launches,
+                "int8_evaluate": int8_eval_launches}
+
+    def trace_nms(self, log_dir):
+        """batched_non_max_suppression at B=8 K=1,024 (one nms_keep launch)
+        under utils/profile.py's ``trace`` into ``log_dir``: nms_keep's
+        count over the traced call, the names in trace.json that are the
+        NMS kernels, and the file's bytes."""
+        from pathlib import Path
+
+        from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.nms import batched_non_max_suppression
+        from tpucv_torch.ops.nms_cases import yolo_pred_case
+        from tpucv_torch.utils.profile import trace
+
+        torch = self.torch
+        pred = torch.from_numpy(yolo_pred_case(1, 8, 8400, 80)).to(self.dev)
+        batched_non_max_suppression(pred, 0.25, 0.45, 300, 1024)
+        self.sync()
+        nms_keep.launches = 0                # just before the path
+        with trace(log_dir):
+            batched_non_max_suppression(pred, 0.25, 0.45, 300, 1024)
+            self.sync()
+        launches = nms_keep.launches         # just after
+        path = Path(log_dir) / "trace.json"
+        names = {e.get("name", "") for e in
+                 json.loads(path.read_text())["traceEvents"]}
+        return {"launches": launches, "bytes": path.stat().st_size,
+                "kernels": sorted(n for n in names
+                                  if "nms_" in n and "kernel" in n)}
+
+    def phase_profile(self, reps=5):
+        """utils/profile.py on the card: ``Profile`` around UNet's bf16
+        forward at 512² B=8 without and with ``fence`` on its output (the
+        unfenced span ends when the launches are queued, so it must be the
+        shorter; medians of ``reps``), ``.t`` the sum of the spans; then
+        trace_nms in a fresh process (in_fresh_process): one nms_keep
+        launch, and its trace.json names both NMS kernels."""
+        from tpucv_torch.utils.profile import Profile
+
+        torch = self.torch
+        B, S = ZOO["unet"][1]
+        model = self.zoo_network("unet").to(
+            self.dev, memory_format=torch.channels_last).eval()
+        x = torch.rand((B, 3, S, S), device=self.dev).to(
+            memory_format=torch.channels_last)
+        spans = {"unfenced": [], "fenced": []}
+        p = Profile()
+        with torch.inference_mode(), \
+                torch.autocast("cuda", dtype=torch.bfloat16):
+            model(x)
+            self.sync()
+            for _ in range(reps):
+                for tag in spans:
+                    with p:
+                        y = model(x)
+                        if tag == "fenced":
+                            p.fence(y)
+                    spans[tag].append(p.dt * 1e3)
+                    self.sync()
+        med = {k: float(np.median(v)) for k, v in spans.items()}
+        total = sum(sum(v) for v in spans.values()) / 1e3
+        check(abs(p.t - total) <= 1e-9 * max(total, 1.0) + 1e-12,
+              f"profile: .t {p.t} is not the spans' sum {total}")
+        check(med["unfenced"] < med["fenced"],
+              f"profile: unfenced {med['unfenced']} ms not under fenced "
+              f"{med['fenced']} ms")
+        del model, x, y
+        torch.cuda.empty_cache()
+        tr = self.in_fresh_process(
+            "trace_nms", str(ROOT / "saves" / "chip_smoke" / "trace"))
+        check(tr["launches"] == 1, f"profile: nms_keep launched "
+                                   f"{tr['launches']}")
+        check(any("build" in n for n in tr["kernels"])
+              and any("walk" in n for n in tr["kernels"]),
+              f"profile: the trace names {tr['kernels']}, not both NMS "
+              f"kernels")
+        emit({"phase": "profile", f"unet_bf16_B{B}_{S}_ms": med,
+              "fenced_over_unfenced": med["fenced"] / med["unfenced"],
+              "profile_t_s": p.t, "trace_process": "fresh",
+              "trace_nms_kernels": tr["kernels"], "trace_bytes": tr["bytes"],
+              "nms_keep_launches": tr["launches"],
+              "nvidia_smi": nvidia_smi()})
+        return tr["launches"]
+
     def bound(self, sb, ss, keep, thr):
         """Least time for the greedy keep mask on these inputs: bytes (boxes
         and scores read once, the mask written once) over HBM bandwidth,
@@ -6371,8 +6933,16 @@ def main() -> int:
     y3_algo, y3_model = smoke.yolo3_sharpened(y3_ckpt)
     y3_predict_launches = smoke.phase_yolo3_predict(y3_algo, y3_model, imgs)
     y3_eval_launches = smoke.phase_yolo3_evaluate(y3_algo, y3_model)
+    t_zoo = time.perf_counter()
+    zoo_parity_launches = smoke.phase_zoo_parity()
+    zoo_forward_launches = smoke.phase_zoo_forward()
+    zoo_nms_launches = smoke.phase_zoo_nms(algo, imgs)
+    convert_launches = smoke.phase_convert_model(run, imgs)
+    profile_launches = smoke.phase_profile()
+    emit({"phase": "zoo_phases", "seconds": time.perf_counter() - t_zoo})
     shutil.rmtree(ROOT / "saves" / "chip_smoke", ignore_errors=True)
 
+    emit({"phase": "total", "seconds": time.perf_counter() - T0})
     print(nvidia_smi(), flush=True)
     emit({"kernels": [{
         "name": "nms_keep", "route": "cuda",
@@ -6445,7 +7015,25 @@ def main() -> int:
                              "yolo3_predict (K=4096: the scan)":
                                  y3_predict_launches,
                              "yolo3_evaluate (K=4096: the scan)":
-                                 y3_eval_launches},
+                                 y3_eval_launches,
+                             "zoo_parity: no NMS": zoo_parity_launches,
+                             "zoo_forward: no NMS": zoo_forward_launches,
+                             "zoo_nms batched_non_max_suppression (B=8, "
+                             "K=1024)": zoo_nms_launches["K1024"],
+                             "zoo_nms agnostic (B=8, K=1024)":
+                                 zoo_nms_launches["K1024_agnostic"],
+                             "zoo_nms (B=8, K=2048: the scan)":
+                                 zoo_nms_launches["K2048_scan"],
+                             "zoo_nms Ensemble of two YOLOv8n (B=8, "
+                             "K=1024)": zoo_nms_launches["ensemble"],
+                             "convert_model predict (5 images)":
+                                 convert_launches["predict"],
+                             "convert_model --int8 predict (5 images)":
+                                 convert_launches["int8_predict"],
+                             "convert_model --int8 evaluate (K=4096: the "
+                             "scan)": convert_launches["int8_evaluate"],
+                             "profile trace (B=8, K=1024)":
+                                 profile_launches},
         "mismatches": smoke.mismatches,
         "word_mismatches": smoke.word_mismatches,
         "max_abs_err": smoke.max_abs_err,

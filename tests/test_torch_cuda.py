@@ -1180,3 +1180,77 @@ def test_two_rank_gloo_step_on_the_card(tmp_path):
             for k, v in ref[-1]["sd"].items():
                 torch.testing.assert_close(got["sd"][k], v, rtol=0,
                                            atol=1e-6)
+
+
+# ------------------------------------------------------ the rest of the zoo
+def _zoo(name):
+    """A network with seed-0 weights (at a small size) or a block with
+    torch's default init, and an input for it, NCHW."""
+    from tpucv_torch.models import extras, openpose
+    from tpucv_torch.nn import blocks as tb
+    nets = {"vgg16": (extras.VGG(16), 48),
+            "mobilenet_v2": (extras.MobileNetV2(10, 0.25), 64),
+            "unet": (extras.UNet(5), 46),
+            "cpm": (openpose.CPM(n_stages=2), 64)}
+    blocks = {"c3tr": (tb.C3TR(8, 16, 1), 8),
+              "dwconv_transpose": (tb.DWConvTranspose2d(8, 12, 3, 2, 1, 1),
+                                   9),
+              "conv_transpose_bn_act": (tb.ConvTransposeBnAct(8, 12, 3, 2),
+                                        9)}
+    if name in nets:
+        model, size = nets[name]
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        cin = 3
+    else:
+        model, size = blocks[name]
+        cin = 8
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (2, cin, size, size)).astype(np.float32))
+    return model, x
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("name", ["vgg16", "mobilenet_v2", "unet", "cpm",
+                                  "c3tr", "dwconv_transpose",
+                                  "conv_transpose_bn_act"])
+def test_zoo_on_the_card_equals_the_cpu(name, train, no_tf32):
+    """f32 (TF32 off), B=2: every output within 1e-4 of its largest
+    |value|, card against CPU, in eval and train mode, and after the
+    train-mode forward each running variance within 1e-4 of its largest
+    value, each running mean of its BatchNorm's largest std."""
+    model, x = _zoo(name)
+    model.train(train)
+    card = copy.deepcopy(model).cuda().to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        cpu_out, card_out = model(x), card(x.cuda())
+    cpu_out = cpu_out if isinstance(cpu_out, tuple) else (cpu_out,)
+    card_out = card_out if isinstance(card_out, tuple) else (card_out,)
+    for c, g in zip(cpu_out, card_out):
+        assert g.shape == c.shape
+        assert float((g.cpu() - c).abs().max() / c.abs().max()) < 1e-4
+    sd, csd = model.state_dict(), card.state_dict()
+    for k, v in sd.items():
+        if k.endswith(("running_mean", "running_var")):
+            # a mean that is 0 but for rounding is scaled by its BN's std
+            var = sd[k.replace("running_mean", "running_var")]
+            scale = var.max() if k.endswith("var") else var.max().sqrt()
+            assert float((csd[k].cpu() - v).abs().max() / scale) < 1e-4, k
+
+
+@pytest.mark.parametrize("topk,launches", [(1024, 1), (2048, 0)])
+def test_batched_non_max_suppression_on_the_card(topk, launches):
+    """B=8, A=8,400, nc=80: one ``nms_keep`` launch for the whole batch at
+    K=1,024 and the scan (none) at 2,048; every output equal to the CPU
+    plain route's, boxes and scores bit for bit."""
+    from tpucv_torch.ops.nms import batched_non_max_suppression
+    from tpucv_torch.ops.nms_cases import yolo_pred_case
+    pred = torch.from_numpy(yolo_pred_case(0, 8, 8400, 80))
+    cpu = batched_non_max_suppression(pred, 0.25, 0.45, 300, topk)
+    before = nms_keep.launches
+    card = batched_non_max_suppression(pred.cuda(), 0.25, 0.45, 300, topk)
+    assert nms_keep.launches - before == launches
+    valid = cpu[3]
+    assert torch.equal(card[3].cpu(), valid) and valid.any()
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert torch.equal(card[1].cpu(), cpu[1])
+    assert torch.equal(card[2].cpu()[valid], cpu[2][valid])

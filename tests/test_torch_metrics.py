@@ -148,3 +148,76 @@ def test_print_summaries_equal_tpucv(capsys):
         printed.append(capsys.readouterr().out)
     assert printed[0] == printed[1]
     assert len(printed[0].splitlines()) == 12 + len(CLASSES) + 1
+
+
+# ---------------------------------------------------------- VOC txt files
+def _voc_txt_set(seed=3):
+    rng = np.random.default_rng(seed)
+    names = ["cat", "dog", "person"]
+    keys = [f"{i:06d}" for i in range(4)]
+
+    class Index:
+        """An index over 4 images, the last without objects, with
+        ``eval_record`` (difficult flags) or without."""
+
+        def __init__(self, difficult=True):
+            self.objs = [(rng.uniform(0, 400, (n, 4)).astype(np.float32),
+                          rng.integers(0, 3, n).astype(np.int32),
+                          rng.random(n) < 0.3) for n in (3, 1, 4, 0)]
+            if not difficult:
+                self.eval_record = None     # read through index[i] instead
+
+        def __len__(self):
+            return 4
+
+        def __getitem__(self, i):
+            b, l, _ = self.objs[i]
+            return f"/data/{keys[i]}.jpg", b, l
+
+        def eval_record(self, i):
+            return self.objs[i]
+
+    dts = [{"image_id": int(rng.integers(0, 4)),
+            "class_id": int(rng.integers(0, 3)),
+            "bbox": rng.uniform(-3, 500, 4).astype(np.float32).tolist(),
+            "score": s}
+           for s in [0.123456789, np.float32(0.5), 1.0, 3.2e-05,
+                     np.float32(0.98765433), 0.25]]
+    return names, keys, Index, dts
+
+
+def test_voc_txt_files_byte_equal_and_round_trip(tmp_path):
+    """Detection and ground-truth directories byte-equal to tpucv's (score
+    strings cut to 6 characters, coordinates to int, difficult tagged),
+    and read back equal by both."""
+    from tpucv.metrics import voc_txt as jt
+    from tpucv_torch.metrics import voc_txt as tt
+
+    names, keys, Index, dts = _voc_txt_set()
+    for difficult in (True, False):
+        index = Index(difficult)
+        assert tt.voc_image_keys(index) == jt.voc_image_keys(index) == keys
+        out = {}
+        for tag, mod in (("port", tt), ("tpucv", jt)):
+            root = tmp_path / f"{tag}{difficult}"
+            mod.export_detection_txt(dts, names, str(root / "dr"), keys)
+            mod.export_ground_truth_txt(index, str(root / "gt"), names)
+            out[tag] = root
+        for sub in ("dr", "gt"):
+            files = sorted(p.name for p in (out["port"] / sub).iterdir())
+            assert files == [f"{k}.txt" for k in keys]
+            for f in files:
+                assert ((out["port"] / sub / f).read_bytes()
+                        == (out["tpucv"] / sub / f).read_bytes()), (sub, f)
+        root = out["port"]
+        assert (tt.import_detection_txt(str(root / "dr"), names)
+                == jt.import_detection_txt(str(root / "dr"), names))
+        got = tt.import_ground_truth_txt(str(root / "gt"), names)
+        assert got == jt.import_ground_truth_txt(str(root / "gt"), names)
+        assert len(got) == 8
+        assert any(g["difficult"] for g in got) == difficult
+    lines = [ln for f in sorted((tmp_path / "portTrue" / "dr").iterdir())
+             for ln in f.read_text().splitlines()]
+    assert len(lines) == len(dts)
+    assert {ln.split()[1] for ln in lines} >= {"0.1234", "0.5", "1.0",
+                                               "3.2e-0"}

@@ -6,6 +6,14 @@ interpret mode, the scan ``nms`` and ``nms_fixpoint`` on every case of
 ``tests/test_pallas_nms.py`` plus class-offset sets at B=4, K=512. Keep-sets
 must be identical. The CUDA kernel itself is held against its plain
 version in ``tests/test_torch_cuda.py``, which needs a card.
+
+The YOLO-style ``non_max_suppression`` and ``batched_non_max_suppression``
+(and ``batched_single_label_nms`` with ``xywh=True``) are held against
+tpucv's on ``nms_cases.yolo_pred_case`` (clustered boxes, tied scores,
+exact duplicates, tied best classes) at K = 32, 1,024 and 2,048,
+class-aware and agnostic: every output equal, boxes and scores bit for
+bit. The batch goes through ``dispatch_batched_nms`` once: ``cuda_nms``
+(the kernel's route) at K <= 1,024, the scan at 2,048.
 """
 
 import jax.numpy as jnp
@@ -13,14 +21,21 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from tpucv.ops import nms as jax_nms_mod
 from tpucv.ops.nms import (dispatch_batched_nms as jax_dispatch,
                            nms as jax_nms, nms_fixpoint as jax_fixpoint)
 from tpucv.ops.pallas_nms import pallas_nms
 from tpucv_torch.ops.cuda_nms import cuda_nms, nms_keep, nms_keep_reference
-from tpucv_torch.ops.nms import (batched_nms, dispatch_batched_nms, nms,
-                                 nms_fixpoint)
+from tpucv_torch.ops import nms as nms_mod
+from tpucv_torch.ops.nms import (batched_nms, batched_non_max_suppression,
+                                 batched_single_label_nms,
+                                 dispatch_batched_nms, nms, nms_fixpoint,
+                                 non_max_suppression)
 from tpucv_torch.ops.nms_cases import (chain_keep, class_offset_case,
-                                       greedy_cases, presorted_case)
+                                       greedy_cases, presorted_case,
+                                       yolo_pred_case)
 
 torch.set_num_threads(1)
 
@@ -124,3 +139,62 @@ def test_wrapper_validates_inputs():
     before = nms_keep.launches
     nms_keep(b, s)                         # CPU: plain version, no launch
     assert nms_keep.launches == before
+
+
+# ---------------------------------------------- YOLO-style decode-and-NMS
+YOLO_K = {32: (600, 32), 1024: (1500, 1024), 2048: (3000, 2048)}  # K: A, topk
+
+
+def _assert_equal(got, ref):
+    """Every output equal; the classes where valid (an empty slot's class
+    is whichever index the engine's search ended on: the scan's and the
+    fixpoint's part)."""
+    valid = np.asarray(ref[3])
+    assert valid.any()
+    np.testing.assert_array_equal(got[3].numpy(), valid)
+    for name, g, r in zip(("boxes", "scores"), got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
+    np.testing.assert_array_equal(got[2].numpy()[valid],
+                                  np.asarray(ref[2])[valid])
+
+
+@pytest.mark.parametrize("agnostic", [False, True])
+@pytest.mark.parametrize("K", list(YOLO_K))
+def test_batched_non_max_suppression_equals_tpucv(K, agnostic,
+                                                  monkeypatch):
+    A, topk = YOLO_K[K]
+    pred = yolo_pred_case(K, 2, A, nc=8)
+    max_det = min(300, K)                # tpucv's top_k needs max_det <= K
+    ref = jax.jit(lambda p: jax_nms_mod.batched_non_max_suppression(
+        p, 0.25, 0.45, max_det, topk, agnostic))(jnp.asarray(pred))
+    calls = []
+    real = nms_mod.cuda_nms
+    monkeypatch.setattr(nms_mod, "cuda_nms",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = batched_non_max_suppression(torch.from_numpy(pred), 0.25, 0.45,
+                                      max_det, topk, agnostic)
+    _assert_equal(got, ref)
+    assert len(calls) == (1 if K <= 1024 else 0)
+
+
+@pytest.mark.parametrize("K", [32, 2048])
+def test_non_max_suppression_equals_tpucv(K):
+    A, topk = YOLO_K[K]
+    pred = yolo_pred_case(K + 1, 1, A, nc=8)[0]
+    max_det = min(300, K)
+    ref = jax.jit(lambda p: jax_nms_mod.non_max_suppression(
+        p, 0.25, 0.45, max_det, topk))(jnp.asarray(pred))
+    got = non_max_suppression(torch.from_numpy(pred), 0.25, 0.45, max_det,
+                              topk)
+    _assert_equal(got, ref)
+
+
+@pytest.mark.parametrize("agnostic", [False, True])
+def test_batched_single_label_nms_xywh_equals_tpucv(agnostic):
+    pred = yolo_pred_case(5, 2, 900, nc=8)
+    ref = jax_nms_mod.batched_single_label_nms(
+        jnp.asarray(pred), 0.2, 0.6, 50, 512, class_agnostic=agnostic,
+        use_pallas=False, xywh=True)
+    got = batched_single_label_nms(torch.from_numpy(pred), 0.2, 0.6, 50,
+                                   512, class_agnostic=agnostic, xywh=True)
+    _assert_equal(got, ref)

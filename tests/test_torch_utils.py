@@ -72,3 +72,38 @@ def test_move_to_device():
     assert isinstance(out["b"], list) and isinstance(out["b"][1], tuple)
     assert torch.equal(out["b"][1][0], torch.arange(3))
     assert out["a"].device.type == "cpu"
+
+
+def test_profile_accumulates_and_traces(tmp_path):
+    """``Profile`` as a context and as a decorator: ``.dt`` is the last
+    span, ``.t`` their sum; ``fence`` takes a tensor or a nest of them
+    (nothing to wait for on the CPU); ``trace`` writes a Chrome trace
+    naming the ops it saw."""
+    import json
+    import time
+
+    from tpucv_torch.utils.profile import Profile, trace
+
+    p = Profile(t=1.0)
+    with p:
+        time.sleep(0.01)
+    first = p.dt
+    assert first >= 0.01 and p.t == pytest.approx(1.0 + first)
+
+    @p
+    def work():
+        time.sleep(0.02)
+        x = torch.ones(4)
+        p.fence({"a": [x, (x * 2,)]})
+        return x
+
+    work()
+    assert p.dt >= 0.02 and p.t == pytest.approx(1.0 + first + p.dt)
+    p.fence(torch.zeros(2))
+    p.fence(())
+
+    with trace(str(tmp_path / "tr")) as d:
+        torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+    events = json.loads((tmp_path / "tr" / "trace.json").read_text())
+    assert d == str(tmp_path / "tr")
+    assert any("mm" in e.get("name", "") for e in events["traceEvents"])

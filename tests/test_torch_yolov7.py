@@ -408,7 +408,7 @@ def test_batched_single_label_nms_equal(seed):
     ref = j_single_label_nms(jnp.asarray(pred), 0.2, 0.45, 50, 512,
                              xywh=False)
     got = batched_single_label_nms(torch.from_numpy(pred), 0.2, 0.45, 50,
-                                   512)
+                                   512, xywh=False)
     _assert_same_detections([np.asarray(r) for r in ref],
                             [g.numpy() for g in got])
 

@@ -70,13 +70,27 @@ H·hd), their (H, hd) biases -> (H·hd,). YOLOv8-cls's ``classify`` head
 (``conv``, ``linear``) is ``model.9``. tpucv's ``YoloV3`` tree (``c0``,
 ``down{s}``, ``res{s}_{r}``, ``y5_a0`` ...) keeps its names too.
 
-The family is told by the tree's top-level names.
+So do the rest of the zoo's trees: ``VGG`` (``conv{i}`` / ``bn{i}``),
+``MobileNetV2`` (``stem``, ``ir{i}``, ``head_conv``, ``classifier``),
+``UNet`` (``e1_c0`` ... ``d1_b1``, ``out``), ``CPM`` (``vgg``, ``cpm0``,
+``paf{s}`` / ``hm{s}``) and the tree of any one block of
+``tpucv/nn/blocks.py`` (``models/extras.py``, ``models/openpose.py``,
+``nn/blocks.py``), but for two renames: a repeated ``m{i}`` is ``m.{i}``,
+and the unnamed ``ConvBnAct_0`` of DWConv and Focus is ``conv``. A
+transposed conv's kernel is no plain HWIO kernel: given the target
+``model``, each of its modules with a ``from_flax_kernel`` (the blocks'
+``FlaxConvTranspose2d`` and ``DWConvTranspose2d``) takes its HWIO kernel
+through it.
+
+The family is told by the tree's top-level names: a tree whose names are
+all YOLOv8 layers' (``b0`` ... ``detect``) is YOLOv8's; one that matches
+no family keeps tpucv's names.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -173,6 +187,10 @@ def _torch_name(path) -> str:
     return ".".join([_TOP[top], *map(_part, mid), leaf])
 
 
+def _own_name(path) -> str:
+    return ".".join("conv" if p == "ConvBnAct_0" else _part(p) for p in path)
+
+
 def _yolo7_name(path) -> str:
     top, *mid, leaf = path
     parts = []
@@ -241,22 +259,26 @@ def _dense(mod, leaf: str, v: np.ndarray) -> np.ndarray:
     return v
 
 
-def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def from_flax_variables(variables: Mapping[str, Any],
+                        model: Optional[torch.nn.Module] = None
+                        ) -> Dict[str, torch.Tensor]:
     """tpucv ``{"params", "batch_stats"[, "quant"]}`` nested dicts of
     arrays -> the port's ``state_dict`` (f32 tensors; the quant buffers
     int8 and f32): ``Yolo8`` with any of its heads (ultralytics key names),
     ``Yolo7``, ``SSD``, ``CenterNet`` or ``DeeplabV3Plus`` (the
-    reference's), or ``ViT`` or ``YoloV3`` (tpucv's). Loads with
-    ``strict=True``."""
-    top = variables.get("params", {})
+    reference's), or ``ViT``, ``YoloV3``, ``VGG``, ``MobileNetV2``,
+    ``UNet``, ``CPM`` or a block (tpucv's). ``model``, the port's module
+    the tree goes into, is needed only where it holds transposed convs
+    (see the module docstring). Loads with ``strict=True``."""
+    top = {**variables.get("batch_stats", {}), **variables.get("params", {})}
     centernet = "dla" in top
     deeplab = "aspp" in top
     name_of = (_yolo7_name if "stem0" in top else
                _ssd_name if "vgg0_conv" in top else
                _centernet_name if centernet else
                _deeplab_name if deeplab else
-               ".".join if "pos_embed" in top or "down0" in top else
-               _torch_name)
+               _torch_name if set(top) <= set(_TOP) else
+               _own_name)
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, v in _walk(variables.get(coll, {})):
@@ -278,6 +300,12 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
             if leaf == "mean":
                 sd[name.replace("running_mean", "num_batches_tracked")] = \
                     torch.tensor(0)
+    for mname, m in ([] if model is None else model.named_modules()):
+        to_torch = getattr(m, "from_flax_kernel", None)
+        key = f"{mname}.weight" if mname else "weight"
+        if to_torch is not None and key in sd:
+            hwio = sd[key].numpy().transpose(2, 3, 1, 0)
+            sd[key] = torch.from_numpy(to_torch(hwio))
     for path, v in _walk(variables.get("quant", {})):
         *mod, leaf = path
         conv, key = leaf.split("::")

@@ -56,4 +56,4 @@ def decode_yolov7(
     boxes, scores = raw_to_pred_yolo7(raw_maps, anchors, strides, nc)
     return batched_single_label_nms(
         torch.cat([boxes, scores], -1), conf_threshold, iou_threshold,
-        max_det, pre_nms_topk)
+        max_det, pre_nms_topk, xywh=False)

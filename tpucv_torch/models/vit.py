@@ -29,13 +29,11 @@ parameters.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpucv_torch.nn.blocks import init_weights
+from tpucv_torch.nn.blocks import Attention, init_weights
 
 LN_EPS = 1e-6
 
@@ -48,30 +46,6 @@ class MlpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
-
-
-class Attention(nn.Module):
-    """flax's ``MultiHeadDotProductAttention`` as self-attention, no mask,
-    no dropout."""
-
-    def __init__(self, dim: int, heads: int):
-        super().__init__()
-        self.heads, self.head_dim = heads, dim // heads
-        self.query = nn.Linear(dim, dim)
-        self.key = nn.Linear(dim, dim)
-        self.value = nn.Linear(dim, dim)
-        self.out = nn.Linear(dim, dim)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, L, _ = x.shape
-        H, hd = self.heads, self.head_dim
-        q = self.query(x).view(B, L, H, hd).transpose(1, 2)     # (B, H, L, hd)
-        k = self.key(x).view(B, L, H, hd).transpose(1, 2)
-        v = self.value(x).view(B, L, H, hd).transpose(1, 2)
-        q = q / math.sqrt(hd)
-        w = torch.softmax(q @ k.transpose(-2, -1), dim=-1)      # (B, H, L, L)
-        o = (w @ v).transpose(1, 2).reshape(B, L, H * hd)
-        return self.out(o)
 
 
 class Block(nn.Module):

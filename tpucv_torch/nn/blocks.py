@@ -11,6 +11,18 @@ flax's running statistics (:class:`BatchNorm2d`).
 ``ConvBnAct`` carries the int8 PTQ hooks of ``tpucv.quant.conv_bn``, and
 ``HookedConv2d`` those of ``conv_bn`` with a conv bias and of
 ``conv_biased`` (see ``tpucv_torch/quant.py``).
+
+The rest of tpucv's zoo follows ``Proto``: DWConv, C1, C2, C3, C3x, SPP,
+Focus, GhostConv, GhostBottleneck, the attention blocks (ChannelAttention,
+SpatialAttention, CBAM), ConvTransposeBnAct, TransformerLayer and
+TransformerBlock, BottleneckCSP, C3TR, C3Ghost, DWConvTranspose2d and
+Ensemble. No registered network uses them. Their submodules keep tpucv's
+flax names (a repeated ``m{i}`` is ``m.{i}``, the unnamed ``ConvBnAct_0``
+of DWConv and Focus is ``conv``), so ``from_flax_variables`` carries a
+block's tree over as it is; the two transposed convs take their kernels
+through their own ``from_flax_kernel`` (flax's ``nn.ConvTranspose`` does
+not flip its kernel, and tpucv's DWConvTranspose2d holds a flipped grouped
+one).
 """
 
 from __future__ import annotations
@@ -18,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -360,6 +373,396 @@ class Proto(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cv3(self.cv2(upsample2x(self.cv1(x))))
+
+
+class Attention(nn.Module):
+    """flax's ``MultiHeadDotProductAttention`` as self-attention, no mask,
+    no dropout: q, k, v and out are ``nn.Linear`` over the flattened heads
+    (``ckpt/convert.py`` reshapes flax's ``DenseGeneral`` kernels), and
+    the query is divided by sqrt(head_dim) before q·kᵀ, as flax does."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads, self.head_dim = heads, dim // heads
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, L, _ = x.shape
+        H, hd = self.heads, self.head_dim
+        q = self.query(x).view(B, L, H, hd).transpose(1, 2)     # (B, H, L, hd)
+        k = self.key(x).view(B, L, H, hd).transpose(1, 2)
+        v = self.value(x).view(B, L, H, hd).transpose(1, 2)
+        q = q / math.sqrt(hd)
+        w = torch.softmax(q @ k.transpose(-2, -1), dim=-1)      # (B, H, L, L)
+        o = (w @ v).transpose(1, 2).reshape(B, L, H * hd)
+        return self.out(o)
+
+
+def _bn(ch: int) -> BatchNorm2d:
+    """A block's bare BatchNorm (eps 1e-3, momentum 0.03)."""
+    return BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+class DWConv(nn.Module):
+    """Depthwise ConvBnAct: groups = gcd(in_ch, out_ch)."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 1, s: int = 1,
+                 act: bool = True):
+        super().__init__()
+        self.conv = ConvBnAct(in_ch, out_ch, k, s,
+                              g=math.gcd(in_ch, out_ch), act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class C1(nn.Module):
+    """CSP bottleneck with 1 conv: cv1, then n 3x3 ConvBnActs, plus cv1's
+    output."""
+
+    def __init__(self, in_ch: int, out_ch: int, n: int = 1):
+        super().__init__()
+        self.cv1 = ConvBnAct(in_ch, out_ch, 1, 1)
+        self.m = nn.ModuleList(ConvBnAct(out_ch, out_ch, 3, 1)
+                               for _ in range(n))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = z = self.cv1(x)
+        for m in self.m:
+            z = m(z)
+        return z + y
+
+
+class C2(nn.Module):
+    """CSP bottleneck with 2 convs: n bottlenecks on the first half of
+    cv1's output, concatenated with the second half into cv2."""
+
+    def __init__(self, in_ch: int, out_ch: int, n: int = 1,
+                 shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(out_ch * e)
+        self.cv1 = ConvBnAct(in_ch, 2 * self.c, 1, 1)
+        self.cv2 = ConvBnAct(2 * self.c, out_ch, 1, 1)
+        self.m = nn.ModuleList(
+            Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0)
+            for _ in range(n))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).split(self.c, 1)
+        for m in self.m:
+            a = m(a)
+        return self.cv2(torch.cat([a, b], 1))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs: n (1, 3) bottlenecks on cv1's output,
+    concatenated with cv2's into cv3."""
+
+    def __init__(self, in_ch: int, out_ch: int, n: int = 1,
+                 shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(out_ch * e)
+        self.cv1 = ConvBnAct(in_ch, c_, 1, 1)
+        self.cv2 = ConvBnAct(in_ch, c_, 1, 1)
+        self.cv3 = ConvBnAct(2 * c_, out_ch, 1, 1)
+        self.m = self.chain(c_, n, shortcut, g)
+
+    def chain(self, c_: int, n: int, shortcut: bool, g: int) -> nn.Module:
+        """The modules between cv1 and the concatenation."""
+        return nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, k=(1, 3),
+                                          e=1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class _CrossBottleneck(nn.Module):
+    """(1, 3) then (3, 1) conv, each with its BatchNorm and SiLU, and an
+    optional residual."""
+
+    def __init__(self, in_ch: int, out_ch: int, shortcut: bool = True):
+        super().__init__()
+        self.cv1 = nn.Conv2d(in_ch, out_ch, (1, 3), padding=(0, 1),
+                             bias=False)
+        self.bn1 = _bn(out_ch)
+        self.cv2 = nn.Conv2d(out_ch, out_ch, (3, 1), padding=(1, 0),
+                             bias=False)
+        self.bn2 = _bn(out_ch)
+        self.add = shortcut and in_ch == out_ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.silu(self.bn1(self.cv1(x)))
+        y = F.silu(self.bn2(self.cv2(y)))
+        return x + y if self.add else y
+
+
+class C3x(C3):
+    """C3 with cross (1, 3) / (3, 1) bottlenecks."""
+
+    def chain(self, c_, n, shortcut, g):
+        return nn.Sequential(*(_CrossBottleneck(c_, c_, shortcut)
+                               for _ in range(n)))
+
+
+class SPP(nn.Module):
+    """Classic spatial pyramid pooling: parallel k x k max pools."""
+
+    def __init__(self, in_ch: int, out_ch: int,
+                 ks: Tuple[int, ...] = (5, 9, 13)):
+        super().__init__()
+        c_ = in_ch // 2
+        self.cv1 = ConvBnAct(in_ch, c_, 1, 1)
+        self.cv2 = ConvBnAct(c_ * (len(ks) + 1), out_ch, 1, 1)
+        self.ks = tuple(ks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y] + [max_pool_same(y, k)
+                                         for k in self.ks], 1))
+
+
+class Focus(nn.Module):
+    """Space-to-depth stem: the four 2x2 phases ((0, 0), (1, 0), (0, 1),
+    (1, 1) in (row, column)) concatenated on channels, then a ConvBnAct."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 1, s: int = 1):
+        super().__init__()
+        self.conv = ConvBnAct(4 * in_ch, out_ch, k, s)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(torch.cat(
+            [x[:, :, ::2, ::2], x[:, :, 1::2, ::2], x[:, :, ::2, 1::2],
+             x[:, :, 1::2, 1::2]], 1))
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: half the channels from cv1, the other half a
+    5x5 depthwise ConvBnAct of them."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 1, s: int = 1):
+        super().__init__()
+        c_ = out_ch // 2
+        self.cv1 = ConvBnAct(in_ch, c_, k, s)
+        self.cv2 = ConvBnAct(c_, c_, 5, 1, g=c_)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck: g1, a stride-2 depthwise conv when s = 2, g2;
+    the shortcut is the input, or a 1x1 ConvBnAct (``scv``) where the
+    channels change, after a depthwise stride-2 conv (``sdw``) when
+    s = 2."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = out_ch // 2
+        self.dw = self.sdw = self.scv = None
+        self.g1 = GhostConv(in_ch, c_, 1, 1)
+        if s == 2:
+            self.dw = DWConv(c_, c_, k, s, act=False)
+            self.sdw = DWConv(in_ch, in_ch, k, s, act=False)
+        self.g2 = GhostConv(c_, out_ch, 1, 1)
+        if s == 2 or in_ch != out_ch:
+            self.scv = ConvBnAct(in_ch, out_ch, 1, 1, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.g1(x)
+        if self.dw is not None:
+            y, x = self.dw(y), self.sdw(x)
+        y = self.g2(y)
+        return y + (x if self.scv is None else self.scv(x))
+
+
+class ChannelAttention(nn.Module):
+    """x times the sigmoid of a biased 1x1 conv of its spatial mean."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.fc = nn.Conv2d(ch, ch, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.fc(x.mean((2, 3), keepdim=True)))
+
+
+class SpatialAttention(nn.Module):
+    """x times the sigmoid of a biased k x k conv of its channel mean and
+    max."""
+
+    def __init__(self, k: int = 7):
+        super().__init__()
+        self.cv = nn.Conv2d(2, 1, k, padding=k // 2, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)
+        return x * torch.sigmoid(self.cv(s))
+
+
+class CBAM(nn.Module):
+    """Convolutional block attention: channel, then spatial."""
+
+    def __init__(self, ch: int, k: int = 7):
+        super().__init__()
+        self.ca = ChannelAttention(ch)
+        self.sa = SpatialAttention(k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.sa(self.ca(x))
+
+
+class FlaxConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that takes flax's ``nn.ConvTranspose`` kernel
+    (``transpose_kernel=False``): flax runs its (k, k, in, out) kernel
+    unflipped over the dilated input, torch flips its own, so the torch
+    weight is flax's flipped in space, laid out (in, out, k, k)."""
+
+    @staticmethod
+    def from_flax_kernel(hwio: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(hwio[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+class ConvTransposeBnAct(nn.Module):
+    """Transposed conv (flax's "VALID": output (H - 1)·s + max(k, s)) +
+    BatchNorm + SiLU. Where k < s flax's output is s - k rows longer than
+    torch's, at the bottom and right: they come back as
+    ``output_padding``."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 2, s: int = 2,
+                 act: bool = True):
+        super().__init__()
+        self.conv = FlaxConvTranspose2d(in_ch, out_ch, k, s, 0,
+                                        output_padding=max(s - k, 0),
+                                        bias=False)
+        self.bn = _bn(out_ch)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        return F.silu(x) if self.act else x
+
+
+class TransformerLayer(nn.Module):
+    """x + attention(x), then x + fc2(fc1(x)): no LayerNorm and no
+    activation, as tpucv's."""
+
+    def __init__(self, dim: int, heads: int = 4):
+        super().__init__()
+        self.attn = Attention(dim, heads)
+        self.fc1 = nn.Linear(dim, dim)
+        self.fc2 = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(x)
+        return x + self.fc2(self.fc1(x))
+
+
+class TransformerBlock(nn.Module):
+    """A 1x1 ConvBnAct where the channels change, then the map's (h, w)
+    positions as tokens, a learned linear position term added, and n
+    TransformerLayers (``tr{i}``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, heads: int = 4, n: int = 1):
+        super().__init__()
+        self.conv = (ConvBnAct(in_ch, out_ch, 1, 1) if in_ch != out_ch
+                     else None)
+        self.linear = nn.Linear(out_ch, out_ch)
+        self.n = n
+        for i in range(n):
+            self.add_module(f"tr{i}", TransformerLayer(out_ch, heads))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv is not None:
+            x = self.conv(x)
+        b, c, h, w = x.shape
+        seq = x.flatten(2).transpose(1, 2)                      # (B, hw, C)
+        seq = seq + self.linear(seq)
+        for i in range(self.n):
+            seq = getattr(self, f"tr{i}")(seq)
+        return seq.transpose(1, 2).reshape(b, c, h, w)
+
+
+class BottleneckCSP(nn.Module):
+    """Classic CSP bottleneck: n bottlenecks on cv1's output then the
+    plain 1x1 cv3, beside the plain 1x1 cv2 of the input; one BatchNorm +
+    SiLU over both, then cv4."""
+
+    def __init__(self, in_ch: int, out_ch: int, n: int = 1,
+                 shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(out_ch * e)
+        self.cv1 = ConvBnAct(in_ch, c_, 1, 1)
+        self.cv2 = nn.Conv2d(in_ch, c_, 1, bias=False)
+        self.cv3 = nn.Conv2d(c_, c_, 1, bias=False)
+        self.cv4 = ConvBnAct(2 * c_, out_ch, 1, 1)
+        self.bn = _bn(2 * c_)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, e=1.0)
+                                 for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.cv3(self.m(self.cv1(x)))
+        y = F.silu(self.bn(torch.cat([a, self.cv2(x)], 1)))
+        return self.cv4(y)
+
+
+class C3TR(C3):
+    """C3 whose bottleneck chain is a 4-head TransformerBlock."""
+
+    def chain(self, c_, n, shortcut, g):
+        return TransformerBlock(c_, c_, 4, n)
+
+
+class C3Ghost(C3):
+    """C3 whose bottleneck chain is GhostBottlenecks."""
+
+    def chain(self, c_, n, shortcut, g):
+        return nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))
+
+
+class DWConvTranspose2d(nn.ConvTranspose2d):
+    """Depthwise transposed conv with a bias, groups = gcd(in_ch, out_ch):
+    output (H - 1)·s - 2·p1 + k + p2. torch requires p2 < s.
+
+    tpucv runs it as a forward conv over the s-dilated input with its
+    (k, k, in/g, out) kernel flipped; torch's transposed conv flips its own
+    (in, out/g, k, k) weight, so the weight is tpucv's kernel unflipped
+    and regrouped: ``weight[j·in/g + i, o] = kernel[:, :, i, j·out/g + o]``
+    for group j."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int = 1, s: int = 1,
+                 p1: int = 0, p2: int = 0):
+        super().__init__(in_ch, out_ch, k, s, p1, p2,
+                         groups=math.gcd(in_ch, out_ch), bias=True)
+
+    def from_flax_kernel(self, hwio: np.ndarray) -> np.ndarray:
+        k, _, cg, out = hwio.shape
+        g = self.groups
+        return np.ascontiguousarray(
+            hwio.reshape(k, k, cg, g, out // g).transpose(3, 2, 4, 0, 1)
+            .reshape(g * cg, out // g, k, k))
+
+
+class Ensemble:
+    """Detections of several models fused for one NMS: every member (a
+    callable, ``member(x) -> (B, A_i, no)``, e.g. a model and its decode)
+    runs on the same batch and the outputs are concatenated on ``axis``,
+    the candidate axis of the (B, A, no) decode layout."""
+
+    def __init__(self, members=(), axis: int = 1):
+        self.members = list(members)
+        self.axis = axis
+
+    def append(self, member) -> None:
+        self.members.append(member)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.members:
+            raise ValueError("Ensemble has no members")
+        return torch.cat([m(x) for m in self.members], self.axis)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

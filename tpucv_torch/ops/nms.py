@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpucv_torch.ops.boxes import xywh2xyxy
 from tpucv_torch.ops.cuda_nms import (NEG_INF, MAX_BOXES, select_kept,
                                       cuda_nms, nms_keep_reference)
 
@@ -124,12 +125,17 @@ def batched_single_label_nms(
     iou_threshold: float = 0.7,
     max_det: int = 300,
     pre_nms_topk: int = 1024,
+    class_agnostic: bool = False,
+    xywh: bool = True,
 ) -> Tuple[torch.Tensor, ...]:
-    """Batched best-class NMS over (B, A, 4+nc) xyxy boxes in pixels and
-    class scores. Each anchor offers its best class (the lowest index on
-    ties) gated at ``conf_threshold``; the top ``pre_nms_topk`` by score
-    (lowest anchor first on ties, as ``lax.top_k`` orders them),
-    class-offset by 7680 px, go through ``dispatch_batched_nms``.
+    """Batched best-class NMS over (B, A, 4+nc) boxes in pixels (cx, cy,
+    w, h; with ``xywh=False`` already x1, y1, x2, y2) and class scores.
+    Each anchor offers its best class (the lowest index on ties) gated at
+    ``conf_threshold``; the top ``pre_nms_topk`` by score (lowest anchor
+    first on ties, as ``lax.top_k`` orders them), as xyxy, offset by
+    class x 7680 px unless ``class_agnostic``, go through
+    ``dispatch_batched_nms`` for the whole batch: ``nms_keep`` (one launch)
+    at K <= 1024, the scan above.
 
     Returns fixed-shape (boxes (B, max_det, 4) xyxy, scores, classes
     int32, valid)."""
@@ -144,20 +150,62 @@ def batched_single_label_nms(
     top_scores, top_idx = top_scores[:, :k].contiguous(), top_idx[:, :k]
     top_boxes = torch.gather(pred[..., :4], 1,
                              top_idx[..., None].expand(-1, -1, 4))
+    if xywh:
+        top_boxes = xywh2xyxy(top_boxes)
     top_cls = torch.gather(best_cls, 1, top_idx)
     return _class_offset_nms(top_boxes, top_scores, top_cls, conf_threshold,
-                             iou_threshold, max_det)
+                             iou_threshold, max_det, class_agnostic)
+
+
+def batched_non_max_suppression(
+    pred: torch.Tensor,
+    conf_threshold: float = 0.25,
+    iou_threshold: float = 0.45,
+    max_det: int = 300,
+    pre_nms_topk: int = 2048,
+    class_agnostic: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """YOLO-style decode-and-suppress over a batch of (B, A, 4+nc)
+    predictions: xywh boxes in pixels and per-class scores in [0, 1]
+    (tpucv's ``non_max_suppression`` vmapped). The best class gated at
+    ``conf_threshold``, the top ``pre_nms_topk``, xywh -> xyxy, class-aware
+    (or agnostic) exact greedy NMS, capped at ``max_det``, re-gated and
+    the invalid slots zeroed: ``batched_single_label_nms`` with tpucv's
+    defaults. At K = min(pre_nms_topk, A) <= 1024 the whole batch is one
+    ``nms_keep`` launch on the card; above, the scan.
+
+    Returns (boxes (B, max_det, 4) xyxy, scores, classes int32, valid)."""
+    return batched_single_label_nms(pred, conf_threshold, iou_threshold,
+                                    max_det, pre_nms_topk, class_agnostic)
+
+
+def non_max_suppression(
+    pred: torch.Tensor,
+    conf_threshold: float = 0.25,
+    iou_threshold: float = 0.45,
+    max_det: int = 300,
+    pre_nms_topk: int = 2048,
+    class_agnostic: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """``batched_non_max_suppression`` of one image's (A, 4+nc)
+    predictions: (boxes (max_det, 4) xyxy, scores, classes, valid)."""
+    out = batched_non_max_suppression(pred[None], conf_threshold,
+                                      iou_threshold, max_det, pre_nms_topk,
+                                      class_agnostic)
+    return tuple(t[0] for t in out)
 
 
 def _class_offset_nms(top_boxes: torch.Tensor, top_scores: torch.Tensor,
                       top_cls: torch.Tensor, conf_threshold: float,
-                      iou_threshold: float, max_det: int
+                      iou_threshold: float, max_det: int,
+                      class_agnostic: bool = False
                       ) -> Tuple[torch.Tensor, ...]:
-    """Score-sorted (B, K) candidates, offset by class x 7680 px, through
-    ``dispatch_batched_nms``; the kept ones gathered into fixed-shape
-    (boxes, scores, classes, valid), valid only above ``conf_threshold``
-    and zero elsewhere."""
-    off = top_boxes + top_cls[..., None].to(top_boxes.dtype) * 7680.0
+    """Score-sorted (B, K) candidates, offset by class x 7680 px (unless
+    ``class_agnostic``), through ``dispatch_batched_nms``; the kept ones
+    gathered into fixed-shape (boxes, scores, classes, valid), valid only
+    above ``conf_threshold`` and zero elsewhere."""
+    off = top_boxes if class_agnostic else \
+        top_boxes + top_cls[..., None].to(top_boxes.dtype) * 7680.0
     idx, valid = dispatch_batched_nms(off, top_scores, iou_threshold,
                                       max_det)
     idx = idx.long()

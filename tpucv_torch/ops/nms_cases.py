@@ -189,3 +189,36 @@ def kernel_cases():
 def chain_keep(name):
     """The greedy keep list of a chain case, by its name (``chain60``)."""
     return list(range(0, int(name[len("chain"):]), 2))
+
+
+def yolo_pred_case(seed, B, A, nc=80, n_obj=40, size=640.0):
+    """YOLO decode output (B, A, 4+nc) f32 for ``non_max_suppression``:
+    xywh boxes in a ``size`` image, clustered about ``n_obj`` objects an
+    image (centres jittered by a tenth of the box: NMS has work),
+    per-class scores in [0, 1), each anchor's object class drawn from
+    U(0, 1) above a floor of U(0, 0.1) (so about a quarter stay under
+    0.25). Ties on purpose: every 7th anchor takes
+    anchor 0's scores, every 11th is its predecessor's exact copy (box and
+    scores), and every 13th scores two classes equally best (the lower
+    index wins)."""
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(0.1 * size, 0.9 * size, (B, n_obj, 2))
+    wh = rng.uniform(0.03 * size, 0.3 * size, (B, n_obj, 2))
+    cls = rng.integers(0, nc, (B, n_obj))
+    obj = rng.integers(0, n_obj, (B, A))
+    bwh = wh[np.arange(B)[:, None], obj]
+    xy = centre[np.arange(B)[:, None], obj] + rng.normal(0, 0.1, (B, A, 2)) * bwh
+    bwh = bwh * rng.uniform(0.7, 1.3, (B, A, 2))
+    scores = rng.uniform(0, 0.1, (B, A, nc))
+    best = np.take_along_axis(cls, obj, 1)[..., None]
+    np.put_along_axis(scores, best, rng.uniform(0, 1, (B, A, 1)), -1)
+    pred = np.concatenate([xy, bwh, scores], -1).astype(np.float32)
+    pred[:, ::7, 4:] = pred[:, :1, 4:]
+    n = len(range(1, A, 11))
+    pred[:, 1::11] = pred[:, 0:A - 1:11][:, :n]
+    tie = pred[:, ::13, 4:]
+    top = tie.argmax(-1)[..., None]
+    np.put_along_axis(tie, (top + 1) % nc, np.take_along_axis(tie, top, -1),
+                      -1)
+    pred[:, ::13, 4:] = tie
+    return pred
