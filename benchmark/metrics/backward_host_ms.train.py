@@ -1,0 +1,12 @@
+"""The training step's backward stage (``train/state.py:make_train_step``):
+milliseconds a step on the host clock in the program's span
+``tpucv.train.backward`` over the traced window (``_span.ms_per``). None
+where the program records no such span."""
+
+from benchmark.metrics import _span
+
+UNIT = "ms/step"
+
+
+def read(ctx):
+    return _span.ms_per(ctx, "train", "tpucv.train.backward")

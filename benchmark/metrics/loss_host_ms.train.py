@@ -1,0 +1,12 @@
+"""The training step's loss stage (``train/state.py:make_train_step``: the
+loss, the TAL assigner included): milliseconds a step on the host clock in
+the program's span ``tpucv.train.loss`` over the traced window
+(``_span.ms_per``). None where the program records no such span."""
+
+from benchmark.metrics import _span
+
+UNIT = "ms/step"
+
+
+def read(ctx):
+    return _span.ms_per(ctx, "train", "tpucv.train.loss")

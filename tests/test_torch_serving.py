@@ -8,7 +8,8 @@ bf16 path to tpucv's own bf16 rounding. Weights are tpucv's init
 with the class-branch biases zeroed (the init's -11.5..-8.8 would leave no
 candidate above the 0.25 gate) and its last kernels scaled by
 ``CLS_GAIN``, carried across with ``from_flax_variables``. Images of several sizes go through
-``_batched_detections`` of both, and through the port's server as raw RGB.
+``_batched_detections`` of both, and through the port's server as raw RGB
+(its ``/stats``: ``batch_ms``, the queue wait and each detect stage's mean).
 Detection counts and classes must match exactly, boxes within 1e-2 px of
 the original image, scores within 1e-5.
 """
@@ -151,6 +152,10 @@ def test_http_raw_rgb_matches_tpucv(both):
                                     timeout=10) as resp:
             stats = json.loads(resp.read())
         assert stats["requests"] == len(SIZES) and stats["errors"] == 0
+        assert stats["batch_ms"] > 0 and "device_s" not in stats
+        assert stats["queue_wait_ms_p99"] <= stats["latency_ms_p99"]
+        assert set(stats["stage_ms"]) == {"fill", "upload", "queue",
+                                          "download", "unbox"}
     finally:
         server.shutdown()
         server.batcher.stop()

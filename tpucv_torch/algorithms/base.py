@@ -25,6 +25,7 @@ from tpucv_torch.ops.preprocess import (host_letterbox_geom, letterbox_images,
                                         normalize_images)
 from tpucv_torch.utils.image_process import (letter_box, read_image,
                                              reverse_letter_box)
+from tpucv_torch.utils.profile import span
 from tpucv_torch.utils.visualize import show_detection_results
 
 
@@ -205,7 +206,15 @@ class DetectionAlgorithm:
         """Batched loop with the letterbox on the device: the host places
         each raw image on a fixed uint8 canvas; resize, pad, normalise,
         forward, decode and NMS run on ``self.device``. Yields
-        (i, boxes xyxy in original pixels, scores, classes) per image."""
+        (i, boxes xyxy in original pixels, scores, classes) per image.
+
+        Five spans (``utils.profile.span``) tile each batch: ``fill`` (the
+        canvases and the letterbox geometry), ``upload`` (the host-to-
+        device copies), ``queue`` (the host's issue of letterbox, forward,
+        decode and NMS), ``download`` (the fetches, which wait for the
+        device) and ``unbox`` (every image's boxes back to original
+        pixels), each ``tpucv.detect.<stage>``. A batch's results are all
+        made before the first is yielded, so no span covers the caller."""
         s = self.input_size
         C = self.raw_canvas
         dev = self.device
@@ -213,28 +222,36 @@ class DetectionAlgorithm:
         n = len(index)
         for start in range(0, n, batch_size):
             idxs = list(range(start, min(start + batch_size, n)))
-            canvases, hw, oshapes, prescales = self._fill_canvases(
-                index, idxs, batch_size, C)
-            # f64 letterbox geometry on host: exact reference arithmetic
-            geom, hscale = host_letterbox_geom(hw, s)
+            with span("tpucv.detect.fill"):
+                canvases, hw, oshapes, prescales = self._fill_canvases(
+                    index, idxs, batch_size, C)
+                # f64 letterbox geometry on host: exact reference arithmetic
+                geom, hscale = host_letterbox_geom(hw, s)
             with torch.inference_mode():
-                lb, scale, pad = letterbox_images(
-                    torch.from_numpy(canvases).to(dev),
-                    torch.from_numpy(hw).to(dev), s,
-                    geom=torch.from_numpy(geom).to(dev),
-                    scale=torch.from_numpy(hscale).to(dev))
-                outs = infer(model, lb)
-            boxes_b, scores_b, classes_b, valid_b, scale_b, pad_b = (
-                t.cpu().numpy() for t in (*outs, scale, pad))
-            for j, i in enumerate(idxs):
-                v = valid_b[j]
-                pre_x, pre_y = prescales[j]
-                # clip=False: the evaluation protocol never clips boxes
-                boxes = reverse_letter_box(
-                    boxes_b[j][v],
-                    (float(scale_b[j]) * pre_x, float(scale_b[j]) * pre_y),
-                    tuple(pad_b[j]), oshapes[j], clip=False)
-                yield i, boxes, scores_b[j][v], classes_b[j][v]
+                with span("tpucv.detect.upload"):
+                    canvases_d, hw_d, geom_d, hscale_d = (
+                        torch.from_numpy(a).to(dev)
+                        for a in (canvases, hw, geom, hscale))
+                with span("tpucv.detect.queue"):
+                    lb, scale, pad = letterbox_images(
+                        canvases_d, hw_d, s, geom=geom_d, scale=hscale_d)
+                    outs = infer(model, lb)
+            with span("tpucv.detect.download"):
+                boxes_b, scores_b, classes_b, valid_b, scale_b, pad_b = (
+                    t.cpu().numpy() for t in (*outs, scale, pad))
+            with span("tpucv.detect.unbox"):
+                results = []
+                for j, i in enumerate(idxs):
+                    v = valid_b[j]
+                    pre_x, pre_y = prescales[j]
+                    # clip=False: the evaluation protocol never clips boxes
+                    boxes = reverse_letter_box(
+                        boxes_b[j][v],
+                        (float(scale_b[j]) * pre_x, float(scale_b[j]) * pre_y),
+                        tuple(pad_b[j]), oshapes[j], clip=False)
+                    results.append((i, boxes, scores_b[j][v],
+                                    classes_b[j][v]))
+            yield from results
 
     # -------- evaluate-CLI contract ---------------------------------------
     def build_eval_index(self, subset: str = "val"):

@@ -14,6 +14,7 @@ import torch
 from tpucv_torch.ops.boxes import xywh2xyxy
 from tpucv_torch.ops.cuda_nms import (NEG_INF, MAX_BOXES, select_kept,
                                       cuda_nms, nms_keep_reference)
+from tpucv_torch.utils.profile import span
 
 
 def _nms_scan(boxes: torch.Tensor, scores: torch.Tensor,
@@ -110,13 +111,16 @@ def dispatch_batched_nms(off_boxes: torch.Tensor, top_scores: torch.Tensor,
     * K > 1024 (evaluation floods at conf 0.001): the sequential scan,
       which never builds the (K, K) matrix.
 
-    Returns (idx (B, max_det) into the K axis, valid (B, max_det))."""
+    Returns (idx (B, max_det) into the K axis, valid (B, max_det)).
+    Either engine runs in the span ``tpucv.nms``; ``nms_keep.launches``
+    tells them apart."""
     K = top_scores.shape[-1]
-    if K > MAX_BOXES:
-        return _nms_scan(off_boxes, top_scores, iou_threshold, max_det,
-                         diou=False)
-    return cuda_nms(off_boxes, top_scores, iou_threshold, max_det,
-                    presorted=True)
+    with span("tpucv.nms"):
+        if K > MAX_BOXES:
+            return _nms_scan(off_boxes, top_scores, iou_threshold, max_det,
+                             diou=False)
+        return cuda_nms(off_boxes, top_scores, iou_threshold, max_det,
+                        presorted=True)
 
 
 def batched_single_label_nms(

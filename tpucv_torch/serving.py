@@ -18,8 +18,15 @@ HTTP contract:
                     "class_id": c, "label": name}, ...],
                    "latency_ms": total-in-server}
   GET  /healthz   {"status": "ok", "model": ..., "batch_size": ...}
-  GET  /stats     request/batch counters, mean batch occupancy,
-                  latency percentiles over the last window
+  GET  /stats     request/batch counters, mean batch occupancy;
+                  ``batch_s`` (the host's wall time around each batch:
+                  fill, copies, the device's work, the fetch and the
+                  responses' assembly; its mean ``batch_ms``); over the
+                  last 512 requests, ``latency_ms_p50`` / ``_p99`` (submit
+                  to result) and ``queue_wait_ms_p50`` / ``_p99`` (submit
+                  to the start of the request's batch); ``stage_ms``, the
+                  mean ms of each ``tpucv.detect.<stage>`` span of the
+                  batched program over its last 512 batches
 
 Entry point: ``python -m tpucv_torch.serve --model yolo8_det --port 8080``.
 """
@@ -36,7 +43,12 @@ from typing import Optional
 
 import numpy as np
 
+from tpucv_torch.utils import profile
+
 __all__ = ["MicroBatcher", "make_server", "decode_image_bytes"]
+
+
+WINDOW = 512    # requests (batches, for stage_ms) the percentiles cover
 
 
 def decode_image_bytes(body: bytes) -> Optional[np.ndarray]:
@@ -92,14 +104,14 @@ class MicroBatcher:
             max(32, 8 * self.batch_size)
         self._q: "queue.Queue" = queue.Queue()
         self._lock = threading.Lock()
-        self._latencies = collections.deque(maxlen=512)  # seconds
+        self._latencies = collections.deque(maxlen=WINDOW)  # seconds
+        self._waits = collections.deque(maxlen=WINDOW)      # seconds
         self.stats = {"requests": 0, "batches": 0, "images": 0,
                       "errors": 0, "rejected": 0,
-                      # wall time inside the device call (H2D + program
-                      # + result fetch), for separating transport/
-                      # compute cost from HTTP+batcher overhead in load
-                      # tests (snapshot: device_ms_per_batch)
-                      "device_s": 0.0}
+                      # the host's wall time around each batch (the
+                      # batched program and the responses' assembly),
+                      # apart from HTTP and queueing (snapshot: batch_ms)
+                      "batch_s": 0.0}
         self._thread: Optional[threading.Thread] = None
         self._started = False
         self._stopped = False
@@ -199,7 +211,7 @@ class MicroBatcher:
             if not group:
                 continue
             index = [(slot["img"],) for slot in group]
-            t_dev = time.perf_counter()
+            t_batch = time.perf_counter()
             try:
                 for i, boxes, scores, classes in \
                         self.algo._batched_detections(
@@ -222,7 +234,7 @@ class MicroBatcher:
             now = time.perf_counter()
             with self._lock:
                 self.stats["batches"] += 1
-                self.stats["device_s"] += now - t_dev
+                self.stats["batch_s"] += now - t_batch
                 for slot in group:
                     if slot.get("dead"):   # timed out mid-compute; already
                         continue           # counted as an error in submit()
@@ -232,6 +244,7 @@ class MicroBatcher:
                     if "error" in slot or "result" not in slot:
                         self.stats["errors"] += 1
                     self._latencies.append(now - slot["t0"])
+                    self._waits.append(t_batch - slot["t0"])
             for slot in group:
                 slot["ev"].set()
 
@@ -239,17 +252,25 @@ class MicroBatcher:
     def snapshot(self) -> dict:
         with self._lock:
             lat = sorted(self._latencies)
+            waits = sorted(self._waits)
             out = dict(self.stats)
         if out["batches"]:
             out["mean_batch_occupancy"] = round(
                 out["images"] / out["batches"], 2)
-            out["device_ms_per_batch"] = round(
-                out["device_s"] / out["batches"] * 1e3, 2)
-        out["device_s"] = round(out["device_s"], 3)
-        if lat:
-            out["latency_ms_p50"] = round(lat[len(lat) // 2] * 1e3, 2)
-            out["latency_ms_p99"] = round(
-                lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3, 2)
+            out["batch_ms"] = round(out["batch_s"] / out["batches"] * 1e3, 2)
+        for name, xs in (("latency", lat), ("queue_wait", waits)):
+            if xs:
+                out[f"{name}_ms_p50"] = round(xs[len(xs) // 2] * 1e3, 2)
+                out[f"{name}_ms_p99"] = round(
+                    xs[min(len(xs) - 1, int(len(xs) * 0.99))] * 1e3, 2)
+        stage_ms = {}
+        for name in profile.names():
+            ns = profile.recent(name, WINDOW)
+            if name.startswith("tpucv.detect.") and ns:
+                stage_ms[name.rsplit(".", 1)[1]] = round(
+                    sum(ns) / len(ns) * 1e-6, 3)
+        if stage_ms:
+            out["stage_ms"] = stage_ms
         return out
 
 

@@ -24,6 +24,7 @@ data group (ZeRO-1).
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -35,6 +36,7 @@ from tpucv_torch.configs.base import OptimizerCfg
 from tpucv_torch.nn.blocks import seed_dropout, set_data_parallel
 from tpucv_torch.parallel import mesh as pmesh
 from tpucv_torch.train.schedules import Schedule, warmup_multistep
+from tpucv_torch.utils.profile import span
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 # signature: loss_fn(raw_outputs, batch) -> (scalar, metrics dict)
@@ -139,6 +141,20 @@ def _no_lap(stage: str) -> None:
     pass
 
 
+# each stage of the step (``lap``'s names) and its span
+STAGE_SPANS = {"forward": "tpucv.train.forward", "loss": "tpucv.train.loss",
+               "backward": "tpucv.train.backward",
+               "optimizer_ema": "tpucv.train.optimizer"}
+
+
+@contextlib.contextmanager
+def _stage(stage: str, lap: Callable[[str], None]):
+    """A stage of the step: its span, then ``lap(stage)`` as it ends."""
+    with span(STAGE_SPANS[stage]):
+        yield
+    lap(stage)
+
+
 def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
                     grad_accum: int = 1, loss_batch_scaled: bool = False,
                     mixed_precision: Optional[bool] = None,
@@ -184,26 +200,16 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
 
     ``step(state, batch, lap)`` calls ``lap(stage)`` as each stage ends:
     ``forward`` (the batch's move and ``zero_grad`` included), ``loss``,
-    ``backward`` (each once a micro-batch) and ``optimizer_ema``. The
-    bench's split of the step into stages times them with it.
+    ``backward`` (each once a micro-batch) and ``optimizer_ema`` (the
+    gradients' all-reduce, the update and the EMA). The bench's split of
+    the step into stages times them with it. Each stage is also the span
+    ``STAGE_SPANS[stage]`` (``utils.profile.span``), which closes just
+    before its ``lap``.
     """
     dev = resolve_device(device)
     amp = dev.type == "cuda" if mixed_precision is None else mixed_precision
     dp = mesh is not None and mesh.parallel
     marked = weakref.WeakSet()      # models set_data_parallel has seen
-
-    def compute(model, mb, lap, seed):
-        seed_dropout(model, seed)
-        raw = forward(model, mb["images"], amp)
-        if dp:
-            raw = pmesh.gather_rows(raw, mesh)
-            mb = pmesh.gather_batch(mb, mesh)
-        lap("forward")
-        loss, metrics = loss_fn(raw, mb)
-        lap("loss")
-        loss.backward()
-        lap("backward")
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              lap: Callable[[str], None] = _no_lap):
@@ -212,31 +218,45 @@ def make_train_step(loss_fn: LossFn, device="cuda", ema_decay: float = 0.0,
             set_data_parallel(model, mesh.n_data, mesh.data_index,
                               mesh.data_group)
             marked.add(model)
-        batch = _to(batch, dev)
-        state.optimizer.zero_grad(set_to_none=True)
-        if grad_accum <= 1:
-            loss, metrics = compute(model, batch, lap, state.step)
-        else:
-            G = grad_accum
-            micro = [dict(zip(batch, parts)) for parts in
-                     zip(*(v.chunk(G) for v in batch.values()))]
-            losses, metricss = zip(*(
-                compute(model, mb, lap, state.step * G + i)
-                for i, mb in enumerate(micro)))
-            losses = torch.stack(losses)
-            if loss_batch_scaled:
-                loss = losses.sum()
+        G = max(grad_accum, 1)
+        losses, metricss = [], []
+        for i in range(G):
+            with _stage("forward", lap):
+                if i == 0:
+                    batch = _to(batch, dev)
+                    state.optimizer.zero_grad(set_to_none=True)
+                    micro = [batch] if G == 1 else [
+                        dict(zip(batch, parts)) for parts in
+                        zip(*(v.chunk(G) for v in batch.values()))]
+                mb = micro[i]
+                seed_dropout(model, state.step * G + i)
+                raw = forward(model, mb["images"], amp)
+                if dp:
+                    raw = pmesh.gather_rows(raw, mesh)
+                    mb = pmesh.gather_batch(mb, mesh)
+            with _stage("loss", lap):
+                loss, metrics = loss_fn(raw, mb)
+                losses.append(loss.detach())
+                metricss.append({k: v.detach() for k, v in metrics.items()})
+            with _stage("backward", lap):
+                loss.backward()
+        with _stage("optimizer_ema", lap):
+            if G == 1:
+                loss, metrics = losses[0], metricss[0]
             else:
-                grads = [p.grad for p in state.params.values()
-                         if p.grad is not None]
-                torch._foreach_div_(grads, G)
-                loss = losses.mean()
-            metrics = {k: torch.stack([m[k] for m in metricss]).mean()
-                       for k in metricss[0]}
-        if dp:
-            pmesh.all_reduce_grads(state.params.values(), mesh)
-        state.apply_gradients(ema_decay)
-        lap("optimizer_ema")
+                losses = torch.stack(losses)
+                if loss_batch_scaled:
+                    loss = losses.sum()
+                else:
+                    grads = [p.grad for p in state.params.values()
+                             if p.grad is not None]
+                    torch._foreach_div_(grads, G)
+                    loss = losses.mean()
+                metrics = {k: torch.stack([m[k] for m in metricss]).mean()
+                           for k in metricss[0]}
+            if dp:
+                pmesh.all_reduce_grads(state.params.values(), mesh)
+            state.apply_gradients(ema_decay)
         metrics["loss"] = loss
         return state, metrics
 
