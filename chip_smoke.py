@@ -54,7 +54,10 @@ script started); any failure exits non-zero:
             (pre_nms_topk=512), timed with CUDA events, device-resident and
             with the H2D copy; the kernels' and the plain version's times
             at the main path's shapes, the build and the walk timed apart,
-            and the least time the card could take.
+            and the least time the card could take. Then scan_time:
+            nms_scan at YOLOv7's B=32, K=4,096, max_det 100 (one launch,
+            equal to its plain scan), timed in turns beside the plain
+            scan's eager loop.
 6. probe_bw python -m tpucv_torch.probes.probe_bw's main at full size
             (add_one's count zeroed just before, read just after); then
             add_one on the 1,638,400x128 bf16 array in its six views, bit
@@ -443,7 +446,9 @@ script started); any failure exits non-zero:
 The line before the last holds {"kernels": [...]} (nms_keep, with its
 launches on every path that runs it, the int8, YOLOv7, SSD, CenterNet,
 DeepLab, classification and zoo ones included (CenterNet's, the DIoU scan,
-and DeepLab's and the classifiers', no NMS, all 0), add_one, conv3x3);
+and DeepLab's and the classifiers', no NMS, all 0), nms_scan (its time
+at YOLOv7's shape beside the plain scan's; the phases at K = 4,096 and
+CenterNet's count its launches, one a call), add_one, conv3x3);
 the last line is
 {"ok": true, "device": {...}}. The whole output is also written to
 chiprun_out/chip_smoke.log. Without CUDA, or without the repository
@@ -1113,9 +1118,12 @@ class Smoke:
     def phase_serve(self, algo, model, model_name="yolo8_det",
                     phase="serve", scan=False):
         """16 concurrent raw-RGB requests through make_server (batch 8);
-        nms_keep's count zeroed just before, read just after: some launches
-        on a path with K <= 1024, none where ``scan`` (K = 4096)."""
+        nms_keep's and nms_scan's counts zeroed just before, read just
+        after: nms_keep launches on a path with K <= 1024, none where
+        ``scan`` (K = 4096, or CenterNet's DIoU), and there one nms_scan
+        launch a served batch."""
         from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.cuda_scan import nms_scan
         from tpucv_torch.serving import make_server
 
         imgs = self._images(16)
@@ -1145,6 +1153,7 @@ class Smoke:
             posters = [threading.Thread(target=post, args=(k,))
                        for k in range(len(imgs))]
             nms_keep.launches = 0            # just before the main path
+            nms_scan.launches = 0
             t0 = time.perf_counter()
             for p in posters:
                 p.start()
@@ -1152,6 +1161,7 @@ class Smoke:
                 p.join(timeout=600)
             wall = time.perf_counter() - t0
             launches = nms_keep.launches     # just after
+            scan_launches = nms_scan.launches
             check(not any(p.is_alive() for p in posters), "requests hung")
             with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
                                         timeout=60) as r:
@@ -1168,8 +1178,12 @@ class Smoke:
         check(max(n_dets) > 0, "no request got a detection")
         check(launches == 0 if scan else launches > 0,
               f"{phase}: nms_keep launched {launches} times while serving")
+        check(scan_launches == (stats["batches"] if scan else 0),
+              f"{phase}: nms_scan launched {scan_launches} times for "
+              f"{stats['batches']} batches")
         emit({"phase": phase, "requests": len(imgs), "statuses_ok": True,
               "detections": n_dets, "nms_launches": launches,
+              "nms_scan_launches": scan_launches,
               "warmup_s": warm_s, "wall_s": wall, "stats": stats})
         return imgs, results, launches
 
@@ -1915,7 +1929,7 @@ class Smoke:
         each stage: the host letterbox and GT rasterising, the device
         (forward, decode, scan), the masks (product, crop, upsample,
         threshold, D2H) and the mask COCOeval. nms_keep's count is read
-        over both and must be 0 (the scan)."""
+        over both and must be 0; nms_scan's (the scan) above 0."""
         import os
 
         from tpucv_torch import evaluate as cli
@@ -1924,6 +1938,7 @@ class Smoke:
         from tpucv_torch.ckpt.checkpoint import CheckPoint
         from tpucv_torch.data.coco import COCOIndex
         from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.cuda_scan import nms_scan
 
         base = ROOT / "saves" / "chip_smoke" / "yolo8_seg" / "evaluate"
         root = base / "coco"
@@ -1931,7 +1946,7 @@ class Smoke:
         env_was, cwd = os.environ.get("TPUCV_COCO_ROOT"), os.getcwd()
         os.environ["TPUCV_COCO_ROOT"] = str(root)
         os.chdir(base)
-        nms_keep.launches = 0                # just before the paths
+        nms_keep.launches = nms_scan.launches = 0    # just before the paths
         try:
             t0 = time.perf_counter()
             box_stats = cli.main(["--model", "yolo8_seg", "--dataset", "coco",
@@ -1969,7 +1984,9 @@ class Smoke:
             rec.restore()
             del algo.make_seg_infer_fn
         launches = nms_keep.launches         # just after
+        scan_launches = nms_scan.launches
         check(launches == 0, f"nms_keep launched {launches} times at K=4096")
+        check(scan_launches > 0, "seg_evaluate launched no nms_scan")
         check(len(mask_stats) == 12 and all(np.isfinite(v) for v in
                                             mask_stats.values()),
               f"mask stats {mask_stats}")
@@ -1982,7 +1999,8 @@ class Smoke:
               "mask_stats": mask_stats, "mask_ap_s": mask_s,
               "mask_ap_ms_by_stage": ms,
               "mask_ap_ms_other": mask_s * 1e3 - sum(ms.values()),
-              "nms_launches": launches, "nvidia_smi": nvidia_smi()})
+              "nms_launches": launches, "nms_scan_launches": scan_launches,
+              "nvidia_smi": nvidia_smi()})
         return launches
 
     def phase_pose_evaluate(self, ckpt, run, batch=16, reps=3):
@@ -2000,12 +2018,13 @@ class Smoke:
         from tpucv_torch import evaluate as cli
         from tpucv_torch.ckpt.checkpoint import CheckPoint
         from tpucv_torch.ops.cuda_nms import nms_keep, nms_keep_reference
+        from tpucv_torch.ops.cuda_scan import nms_scan
 
         base = ROOT / "saves" / "chip_smoke" / "yolo8_pose" / "evaluate"
         base.mkdir(parents=True, exist_ok=True)
         cwd = os.getcwd()
         os.chdir(base)
-        nms_keep.launches = 0                # just before the path
+        nms_keep.launches = nms_scan.launches = 0    # just before the path
         try:
             t0 = time.perf_counter()
             stats = cli.main(["--model", "yolo8_pose", "--ckpt", ckpt,
@@ -2014,13 +2033,16 @@ class Smoke:
         finally:
             os.chdir(cwd)
         eval_launches = nms_keep.launches    # just after
+        scan_launches = nms_scan.launches
         check(eval_launches == 0, f"nms_keep launched {eval_launches} times "
                                   f"at K=4096")
+        check(scan_launches > 0, "pose_evaluate launched no nms_scan")
         check(len(stats) == 22 and all(np.isfinite(v) for v in
                                        stats.values()), f"pose stats {stats}")
         emit({"phase": "pose_evaluate", "images": 16, "stats": stats,
               "cli_s": cli_s, "img_per_s": 16 / cli_s,
-              "nms_launches": eval_launches, "nvidia_smi": nvidia_smi()})
+              "nms_launches": eval_launches,
+              "nms_scan_launches": scan_launches, "nvidia_smi": nvidia_smi()})
 
         trainer = run["trainer"]
         state = trainer.state
@@ -2285,6 +2307,7 @@ class Smoke:
         from tpucv_torch.metrics.coco_map import COCOMeanAP
         from tpucv_torch.native import imagepipe, load
         from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.cuda_scan import nms_scan
 
         base = ROOT / "saves" / "chip_smoke" / "evaluate"
         root = base / "coco"
@@ -2298,12 +2321,13 @@ class Smoke:
         os.environ["TPUCV_COCO_ROOT"] = str(root)
         os.chdir(base)
         try:
-            nms_keep.launches = 0
+            nms_keep.launches = nms_scan.launches = 0
             t0 = time.perf_counter()
             stats = cli.main(argv)
             self.sync()
             wall = time.perf_counter() - t0
             launches = nms_keep.launches
+            scan_launches = nms_scan.launches
             with open(base / "result" / "eval_results.json") as f:
                 dts = json.load(f)
             stages, scans, rec_stats = self._recorded_evaluate(
@@ -2318,6 +2342,9 @@ class Smoke:
         check(len(stats) == 12 and all(np.isfinite(v) for v in
                                        stats.values()), f"stats {stats}")
         check(rec_stats == stats, "the recorded run's stats differ")
+        check(scan_launches == -(-n_img // batch),
+              f"evaluate: nms_scan launched {scan_launches} times for "
+              f"{n_img} images in batches of {batch}")
 
         index = COCOIndex(str(root / "annotations" /
                               "instances_val2017.json"), str(root / "val2017"))
@@ -2346,6 +2373,7 @@ class Smoke:
                "decode_engine": engine, "stats": stats,
                "cli_wall_s": wall, "img_per_s_cli": n_img / wall,
                "nms_keep_launches": launches,
+               "nms_scan_launches": scan_launches,
                "kept_per_image": [min(kept), float(np.mean(kept)), max(kept)],
                "recorded_loop_img_per_s": n_img / loop_ms * 1e3,
                "ms_per_full_batch": per_full_batch, "ms_by_batch": stages,
@@ -2923,13 +2951,14 @@ class Smoke:
 
         from tpucv_torch import evaluate as cli
         from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.cuda_scan import nms_scan
 
         base = ROOT / "saves" / "chip_smoke" / "evaluate"
         env_was, cwd = os.environ.get("TPUCV_COCO_ROOT"), os.getcwd()
         os.environ["TPUCV_COCO_ROOT"] = str(base / "coco")
         os.chdir(base)
         try:
-            nms_keep.launches = 0
+            nms_keep.launches = nms_scan.launches = 0
             t0 = time.perf_counter()
             stats = cli.main(["--model", "yolo8_det", "--dataset", "coco",
                               "--ckpt", ckpt, "--batch-size", str(batch),
@@ -2937,6 +2966,7 @@ class Smoke:
             self.sync()
             wall = time.perf_counter() - t0
             launches = nms_keep.launches
+            scan_launches = nms_scan.launches
         finally:
             os.chdir(cwd)
             if env_was is None:
@@ -2945,9 +2975,11 @@ class Smoke:
                 os.environ["TPUCV_COCO_ROOT"] = env_was
         check(len(stats) == 12 and all(np.isfinite(v) for v in
                                        stats.values()), f"stats {stats}")
+        check(scan_launches > 0, "int8_evaluate launched no nms_scan")
         emit({"phase": "int8_evaluate", "batch": batch, "K": 4096,
               "stats_int8": stats, "stats_float": float_stats,
-              "cli_wall_s": wall, "nms_keep_launches": launches})
+              "cli_wall_s": wall, "nms_keep_launches": launches,
+              "nms_scan_launches": scan_launches})
         return launches
 
     # ---------------------------------------------------------- YOLOv7 --
@@ -3128,10 +3160,11 @@ class Smoke:
         serve images (4 JPEGs, a PNG) with the trained run's final weights
         sharpened (yolo7: conf 0.5, K = 4096, the scan; centernet: conf
         0.1, K = 100, the DIoU scan; nms_keep's count zeroed just before,
-        read just after, 0); drawn files exist; then ms an image split into
-        decode, letterbox, device (H2D, forward, decode, NMS, D2H) with the
-        scan inside it (``scan``: its (owner, attribute), synced at both
-        edges), and draw (median of ``reps``)."""
+        read just after, 0; nms_scan's, one launch an image); drawn files
+        exist; then ms an image split into decode, letterbox, device (H2D,
+        forward, decode, NMS, D2H) with the scan inside it (``scan``: its
+        (owner, attribute), synced at both edges), and draw (median of
+        ``reps``)."""
         import cv2
 
         from tpucv_torch import predict as cli
@@ -3139,6 +3172,7 @@ class Smoke:
         from tpucv_torch.builder import export_from_registry
         from tpucv_torch.ckpt.checkpoint import CheckPoint
         from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.cuda_scan import nms_scan
 
         out = ROOT / "saves" / "chip_smoke" / name / "predict"
         out.mkdir(parents=True, exist_ok=True)
@@ -3148,13 +3182,16 @@ class Smoke:
             check(cv2.imwrite(srcs[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
                   f"could not write {srcs[-1]}")
         argv = ["--model", name, "--ckpt", ckpt, "--src", *srcs]
-        nms_keep.launches = 0                # just before the path
+        nms_keep.launches = nms_scan.launches = 0    # just before the path
         t0 = time.perf_counter()
         got = cli.main([*argv, "--dst", str(out / "drawn")])
         wall = time.perf_counter() - t0
         launches = nms_keep.launches         # just after
+        scan_launches = nms_scan.launches
         check(launches == 0, f"{name} predict: nms_keep launched {launches} "
                              f"times at K={K}")
+        check(scan_launches == len(srcs), f"{name} predict: nms_scan "
+              f"launched {scan_launches} times for {len(srcs)} images")
         for src, r in zip(srcs, got):
             check(r["saved"] and Path(r["saved"]).is_file(),
                   f"{src}: no drawn file ({r['saved']})")
@@ -3196,7 +3233,8 @@ class Smoke:
             rec.restore()
         med = {k: float(np.median(v)) for k, v in laps.items()}
         emit({"phase": f"{name}_predict", "images": len(srcs), "K": K,
-              "nms_launches": launches, "detections": n_dets,
+              "nms_launches": launches, "nms_scan_launches": scan_launches,
+              "detections": n_dets,
               "cli_wall_s": wall, "ms_per_image": med,
               "ms_per_image_total": sum(v for k, v in med.items()
                                         if k != "scan"),
@@ -3233,6 +3271,7 @@ class Smoke:
         from tpucv_torch.metrics.coco_map import COCOMeanAP
         from tpucv_torch.ops import nms as nms_mod
         from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.cuda_scan import nms_scan
 
         scan = scan or (nms_mod, "dispatch_batched_nms")
         base = ROOT / "saves" / "chip_smoke" / name / "evaluate"
@@ -3243,12 +3282,13 @@ class Smoke:
         os.environ["TPUCV_VOC_ROOT"] = str(root)
         os.chdir(base)
         try:
-            nms_keep.launches = 0            # just before the path
+            nms_keep.launches = nms_scan.launches = 0    # just before
             t0 = time.perf_counter()
             res = cli.main(argv)
             self.sync()
             wall = time.perf_counter() - t0
             launches = nms_keep.launches     # just after
+            scan_launches = nms_scan.launches
             decoded = []
             if decode is not None:
                 owner, attr = decode
@@ -3275,6 +3315,9 @@ class Smoke:
         n_batches = -(-n_img // batch)
         check(launches == (n_batches if on_kernel else 0),
               f"{name} evaluate: nms_keep launched {launches} times for "
+              f"{n_batches} batches at K={K}")
+        check(scan_launches == (0 if on_kernel else n_batches),
+              f"{name} evaluate: nms_scan launched {scan_launches} times for "
               f"{n_batches} batches at K={K}")
         check(np.isfinite(res["mAP"]) and len(res["coco"]) == 12
               and all(np.isfinite(v) for v in res["coco"].values()),
@@ -3315,6 +3358,7 @@ class Smoke:
               "K": K, "nms": nms, "mAP": res["mAP"], "coco": res["coco"],
               "cli_wall_s": wall, "img_per_s_cli": n_img / wall,
               "nms_keep_launches": launches,
+              "nms_scan_launches": scan_launches,
               "kept_per_image": [min(kept), float(np.mean(kept)), max(kept)],
               "recorded_loop_img_per_s": n_img / loop_ms * 1e3,
               "ms_per_full_batch": named(per_full_batch),
@@ -3797,13 +3841,14 @@ class Smoke:
     def phase_centernet_decode(self, algo, model, imgs, reps=5):
         """``decode_centernet`` on the sharpened model's bf16 outputs for 8
         serve images letterboxed to 384 (K = 100, conf 0.1, DIoU NMS by the
-        scan): nms_keep's count zeroed just before, read just after (0); the
-        same decode on the CPU from the same maps: valid, classes, scores
-        and the scan's keep indices equal, boxes within 1e-3 px. Then the
-        decode's and the scan's ms on the card, each synced at both edges
-        (median of ``reps``)."""
+        scan): nms_keep's count zeroed just before, read just after (0), and
+        nms_scan's (1); the same decode on the CPU from the same maps:
+        valid, classes, scores and the scan's keep indices equal, boxes
+        within 1e-3 px. Then the decode's and the scan's ms on the card,
+        each synced at both edges (median of ``reps``)."""
         from tpucv_torch.decode import centernet as cdec
         from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.cuda_scan import nms_scan
         from tpucv_torch.ops.preprocess import normalize_images
 
         torch = self.torch
@@ -3825,15 +3870,18 @@ class Smoke:
         cdec.nms = recorded
         try:
             with torch.inference_mode():
-                nms_keep.launches = 0        # just before the path
+                nms_keep.launches = nms_scan.launches = 0    # just before
                 got = cdec.decode_centernet(raw, **kw)
                 self.sync()
                 launches = nms_keep.launches     # just after
+                scan_launches = nms_scan.launches
                 ref = cdec.decode_centernet(raw.cpu(), **kw)
         finally:
             cdec.nms = nms
         check(launches == 0, f"centernet decode: nms_keep launched "
                              f"{launches} times")
+        check(scan_launches == 1, f"centernet decode: nms_scan launched "
+                                  f"{scan_launches} times")
         got = [t.cpu() for t in got]
         (args, k, (g_idx, g_valid)), (_, _, (c_idx, c_valid)) = scans
         check(torch.equal(got[3], ref[3]) and torch.equal(
@@ -3862,7 +3910,8 @@ class Smoke:
         scan_ms = synced_ms(lambda: nms(*args, **k))
         emit({"phase": "centernet_decode", "B": 8, "map": list(raw.shape),
               "K": d.K, "kept": n, "scan_live_candidates_min": live,
-              "nms_launches": launches, "cpu_equal": True,
+              "nms_launches": launches, "nms_scan_launches": scan_launches,
+              "cpu_equal": True,
               "box_max_abs_err_vs_cpu": err, "decode_ms": decode_ms,
               "scan_ms": scan_ms, "scan_share_of_decode": scan_ms / decode_ms,
               "nvidia_smi": nvidia_smi()})
@@ -5528,12 +5577,13 @@ class Smoke:
 
     def phase_yolo3_predict(self, algo, model, imgs, reps=2):
         """DetectionAlgorithm.predict on the serve images (4 JPEGs, a PNG;
-        conf 0.5, K = 4096: the scan), nms_keep's count zeroed just before
-        and read just after (0); detections and drawn files; ms an image
-        (median)."""
+        conf 0.5, K = 4096: the scan), nms_keep's and nms_scan's counts
+        zeroed just before and read just after (0, and one an image);
+        detections and drawn files; ms an image (median)."""
         import cv2
 
         from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.cuda_scan import nms_scan
 
         out = ROOT / "saves" / "chip_smoke" / "yolov3" / "predict"
         out.mkdir(parents=True, exist_ok=True)
@@ -5543,10 +5593,11 @@ class Smoke:
             check(cv2.imwrite(srcs[-1], cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
                   f"could not write {srcs[-1]}")
         infer = algo.make_infer_fn()
-        nms_keep.launches = 0                # just before the path
+        nms_keep.launches = nms_scan.launches = 0    # just before the path
         got = [algo.predict(model, src, infer_fn=infer,
                             save_dir=str(out / "drawn")) for src in srcs]
         launches = nms_keep.launches         # just after
+        scan_launches = nms_scan.launches
         ms = []
         for _ in range(reps):
             for src in srcs:
@@ -5558,12 +5609,15 @@ class Smoke:
         n_dets = [len(r["classes"]) for r in got]
         check(launches == 0, f"yolo3 predict: nms_keep launched {launches} "
                              f"times at K=4096")
+        check(scan_launches == len(srcs), f"yolo3 predict: nms_scan launched "
+              f"{scan_launches} times for {len(srcs)} images")
         check(sum(n_dets) > 0 and all(r["saved"] and Path(r["saved"])
                                       .is_file() for r in got),
               f"yolo3 predict: detections {n_dets}, drawn files "
               f"{[r['saved'] for r in got]}")
         emit({"phase": "yolo3_predict", "images": len(srcs), "K": 4096,
-              "nms_launches": launches, "detections": n_dets,
+              "nms_launches": launches, "nms_scan_launches": scan_launches,
+              "detections": n_dets,
               "ms_per_image_median": float(np.median(ms)),
               "nvidia_smi": nvidia_smi()})
         return launches
@@ -5572,16 +5626,17 @@ class Smoke:
         """evaluate_on_coco on a COCO-layout root written here (64 640x480
         JPEGs and a PNG from SyntheticDetectionIndex, one crowd GT; B=32,
         conf 0.001, K = 4096: the scan): the 12 stats, images/s, nms_keep's
-        count 0."""
+        count 0 and nms_scan's one a batch."""
         from tpucv_torch.data.coco import COCOIndex
         from tpucv_torch.ops.cuda_nms import nms_keep
+        from tpucv_torch.ops.cuda_scan import nms_scan
 
         base = ROOT / "saves" / "chip_smoke" / "yolov3" / "evaluate"
         root = base / "coco"
         n_img = write_coco_root(root, 64)
         index = COCOIndex(str(root / "annotations" / "instances_val2017.json"),
                           str(root / "val2017"))
-        nms_keep.launches = 0                # just before the path
+        nms_keep.launches = nms_scan.launches = 0    # just before the path
         t0 = time.perf_counter()
         stats = algo.evaluate_on_coco(model, index, batch_size=batch,
                                       conf_threshold=0.001,
@@ -5589,14 +5644,17 @@ class Smoke:
         self.sync()
         wall = time.perf_counter() - t0
         launches = nms_keep.launches         # just after
+        scan_launches = nms_scan.launches
         check(launches == 0, f"yolo3 evaluate: nms_keep launched {launches}")
+        check(scan_launches == -(-n_img // batch), f"yolo3 evaluate: nms_scan "
+              f"launched {scan_launches} times for {n_img} images")
         check(len(stats) == 12 and all(np.isfinite(v)
                                        for v in stats.values()),
               f"yolo3 evaluate: {stats}")
         emit({"phase": "yolo3_evaluate", "images": n_img, "batch": batch,
               "K": 4096, "nms": "scan", "stats": stats,
               "img_per_s": n_img / wall, "nms_keep_launches": launches,
-              "nvidia_smi": nvidia_smi()})
+              "nms_scan_launches": scan_launches, "nvidia_smi": nvidia_smi()})
         return launches
 
     # ------------------------------------------------- the rest of the zoo
@@ -6190,6 +6248,59 @@ class Smoke:
         emit({"phase": "kernel_time", **row})
         return row
 
+    def time_scan(self, tag="yolo7_B32_K4096"):
+        """``nms_scan`` at YOLOv7's decode shape (``nms_cases.scan_cases``:
+        B=32, K=4,096, max_det 100, IoU 0.3): one launch, idx and valid
+        equal to the plain scan's on the same CUDA tensors; then, in turns
+        (plain, kernel, kernel, plain), the kernel over 50 queued launches
+        and the plain scan's eager loop (~20 launches a round, host-paced),
+        beside the least time its bytes and IoUs would take (the kernel is
+        bound by its rounds' latency, which neither counts)."""
+        from tpucv_torch.ops.cuda_scan import (library_plan, nms_scan,
+                                               nms_scan_reference)
+        from tpucv_torch.ops.nms_cases import scan_cases
+        from tpucv_torch.probes.common import timed_queued
+
+        torch = self.torch
+        (boxes, scores), thr, max_det, diou = scan_cases()[tag]
+        b = torch.from_numpy(boxes).to(self.dev)
+        s = torch.from_numpy(scores).to(self.dev)
+        nms_scan.launches = 0
+        idx, valid = nms_scan(b, s, thr, max_det, diou)
+        self.sync()
+        launches = nms_scan.launches
+        check(launches == 1, f"{tag}: nms_scan launched {launches} times")
+        ref = nms_scan_reference(b, s, thr, max_det, diou)
+        check(torch.equal(idx, ref[0]) and torch.equal(valid, ref[1]),
+              f"{tag}: the scan kernel differs from the plain scan")
+
+        def plain():
+            return nms_scan_reference(b, s, thr, max_det, diou)
+
+        def kernel():
+            return nms_scan(b, s, thr, max_det, diou)
+
+        p1 = timed_queued(plain, 3, self.dev)
+        k1 = timed_queued(kernel, 50, self.dev)
+        k2 = timed_queued(kernel, 50, self.dev)
+        p2 = timed_queued(plain, 3, self.dev)
+        B, K = s.shape
+        kept = int(valid.sum())
+        t_bytes = (B * K * (16 + 4) + B * max_det * 5) / \
+            H100_HBM_BYTES_PER_S * 1e3
+        t_ops = kept * K * IOU_OPS / H100_FP32_FLOPS * 1e3
+        row = {"tag": tag, "B": B, "K": K, "max_det": max_det, "iou": thr,
+               "diou": diou, "launches": launches, "ms": min(k1, k2),
+               "ms_runs": [k1, k2], "us_per_round": min(k1, k2) * 1e3 /
+               max(int(valid.sum(1).max()), 1),
+               "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "plan": library_plan(B, K)._asdict(),
+               "valid": int((s > 0).sum()), "kept": kept}
+        emit({"phase": "scan_time", **row})
+        return row
+
 
 def free_port() -> int:
     import socket
@@ -6773,7 +6884,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    logs = _build.build(["nms", "stream", "conv3x3"])
+    logs = _build.build(["nms", "nms_scan", "stream", "conv3x3"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libs": [_build.lib_path(k).name for k in logs],
           "ptxas": [ln.strip() for log in logs.values()
@@ -6794,6 +6905,7 @@ def main() -> int:
                                  "serve_B8_K1024")
     smoke.time_kernel(*bench_offs[0], bench_thr, "bench_B128_K512")
     smoke.time_kernel(*bench_offs[1], bench_thr, "bench_B128_K1024")
+    scan_row = smoke.time_scan()
 
     bw = phase_probe_bw(torch)
     conv = phase_probe_conv(torch)
@@ -7040,7 +7152,13 @@ def main() -> int:
         "ms": main_row["ms"], "build_ms": main_row["build_ms"],
         "walk_ms": main_row["walk_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None, "shapes": smoke.shapes}, bw, conv]})
+        "library_ms": None, "shapes": smoke.shapes}, {
+        "name": "nms_scan", "route": "cuda",
+        "source": "tpucv_torch/csrc/nms_scan.cu",
+        "replaces": "none: tpucv/ops/nms.py:30, tpucv's XLA scan",
+        **{k: scan_row[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "us_per_round", "plan")},
+        "library_ms": None}, bw, conv]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

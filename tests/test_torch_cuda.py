@@ -16,8 +16,16 @@ in other orders, and round once to bf16.
 The SSD cases of ``ops/nms_cases.py`` (K = 1,024 at B = 1, 8, 32, class
 offsets up to 19 x 7680 px) run with the other kernel cases, and SSD's
 decode is held through ``nms_keep`` against its plain version.
-CenterNet has no kernel: its forward, targets, loss and decode (DIoU NMS
-by the scan, ``nms_keep`` not launched) are held against the CPU.
+CenterNet has no kernel of its own: its forward, targets, loss and decode
+(DIoU NMS by the scan kernel, one ``nms_scan`` launch, ``nms_keep`` not
+launched) are held against the CPU.
+
+The sequential scan (``nms_scan``, ``csrc/nms_scan.cu``) against its plain
+version on the cases of ``nms_cases.scan_cases``: YOLOv7's B=32 K=4,096,
+the conf-0.001 floods at max_det 300, K = 2,048, 1,025 and CenterNet's
+DIoU at K = 100, with tied scores, exact duplicates, all-invalid rows,
+rows that run out before ``max_det`` and pairs at the threshold: ``idx``
+and ``valid`` equal in every slot, invalid slots included.
 
 The training step has no kernel of its own; its tests at the end hold the
 card against the CPU: the TAL top-k's lowest-index tie order and the
@@ -47,8 +55,11 @@ from tpucv_torch.ops.cuda_nms import (MAX_BOXES, cuda_nms, nms_keep,
 from tpucv_torch.ops.conv3x3 import (COL_TILE, VARIANTS, _ctas_on_card,
                                      conv3x3, conv3x3_reference, kernel_plan,
                                      plan, rolling_tile_rows, strips_for)
+from tpucv_torch.ops.cuda_scan import (MAX_SCAN_BOXES, nms_scan,
+                                       nms_scan_reference, scan_plan)
 from tpucv_torch.ops.nms_cases import (block_cases, chain_keep,
-                                       class_offset_case, kernel_cases)
+                                       class_offset_case, kernel_cases,
+                                       scan_cases)
 from tpucv_torch.ops.stream import (THREADS, add_one, add_one_reference,
                                     launch, library_plan, stream_plan)
 from tpucv_torch.probes import probe_conv
@@ -65,6 +76,7 @@ def _tensors(seed, B, K, n_cls, n_invalid):
 
 CASES = kernel_cases()
 BLOCK_CASES = block_cases()
+SCAN_CASES = scan_cases()
 
 
 def _sorted_cuda(name):
@@ -169,6 +181,81 @@ def test_kernel_refuses_what_it_cannot_take():
                    scores[:, :64].contiguous().cuda())
     with pytest.raises(ValueError):        # on two devices
         walk_words(words, scores[:, :64].contiguous())
+
+
+# -- nms_scan -------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_nms_scan_kernel_equals_the_plain_scan(name):
+    """One launch; idx and valid equal to the plain scan's on the CPU in
+    every slot. With B > 1 the last row is all invalid (every slot idx 0,
+    invalid) and the one before it runs out after at most 10."""
+    (boxes, scores), thr, max_det, diou = SCAN_CASES[name]
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    before = (nms_scan.launches, nms_keep.launches)
+    idx, valid = nms_scan(tb.cuda(), ts.cuda(), thr, max_det, diou)
+    torch.cuda.synchronize()
+    assert (nms_scan.launches, nms_keep.launches) == \
+        (before[0] + 1, before[1])
+    ref_idx, ref_valid = nms_scan_reference(tb, ts, thr, max_det, diou)
+    assert torch.equal(idx.cpu(), ref_idx)
+    assert torch.equal(valid.cpu(), ref_valid)
+    assert int(ref_valid[0].sum()) > 0
+    if tb.shape[0] > 1:
+        assert not ref_valid[-1].any() and not ref_idx[-1].any()
+        assert 0 < int(ref_valid[-2].sum()) <= 10 < max_det
+
+
+@pytest.mark.parametrize("B,K", [(32, 4096), (8, 2048), (4, 1025),
+                                 (1, 100), (3, 1), (2, 33), (70_000, 2)])
+def test_scan_plan_is_the_kernels(B, K):
+    from tpucv_torch.ops.cuda_scan import library_plan
+    assert library_plan(B, K) == scan_plan(B, K)
+
+
+def test_scan_kernel_takes_more_images_than_a_grid_row():
+    """70,000 images of two boxes: box 0 suppresses box 1 in each, so
+    slot 0 is box 0 and slot 1 is empty."""
+    B = 70_000
+    boxes = torch.tensor([[0.0, 0.0, 10.0, 10.0], [1.0, 1.0, 10.0, 10.0]]) \
+        .expand(B, 2, 4).contiguous().cuda()
+    scores = torch.tensor([0.9, 0.8]).expand(B, 2).contiguous().cuda()
+    idx, valid = nms_scan(boxes, scores, 0.5, 2)
+    torch.cuda.synchronize()
+    assert not idx.any() and valid[:, 0].all() and not valid[:, 1].any()
+
+
+def test_nms_scan_refuses_what_it_cannot_take():
+    boxes, scores = _tensors(1, 2, MAX_SCAN_BOXES + 1, 1, 0)
+    before = nms_scan.launches
+    with pytest.raises(ValueError):        # above the kernel's K
+        nms_scan(boxes.cuda(), scores.cuda(), 0.5, 100)
+    with pytest.raises(ValueError):        # no candidate
+        nms_scan(boxes[:, :0].contiguous().cuda(),
+                 scores[:, :0].contiguous().cuda(), 0.5, 100)
+    with pytest.raises(ValueError):        # on two devices
+        nms_scan(boxes.cuda(), scores, 0.5, 100)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            nms_scan(boxes[:, :64].to(dtype).contiguous().cuda(),
+                     scores[:, :64].to(dtype).contiguous().cuda(), 0.5, 100)
+    assert nms_scan.launches == before
+
+
+def test_nms_scan_operator_and_compile_launch_the_kernel():
+    (boxes, scores), thr, max_det, diou = SCAN_CASES["B4_K1025"]
+    tb, ts = torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda()
+    before = nms_scan.launches
+    op = torch.ops.tpucv.nms_scan(tb, ts, thr, max_det, diou)
+    compiled = torch.compile(lambda b, s: nms_scan(b, s, thr, max_det, diou),
+                             fullgraph=True)
+    again = compiled(tb, ts)
+    torch.cuda.synchronize()
+    assert nms_scan.launches == before + 2
+    ref = nms_scan_reference(tb.cpu(), ts.cpu(), thr, max_det, diou)
+    for out in (op, again):
+        assert torch.equal(out[0].cpu(), ref[0])
+        assert torch.equal(out[1].cpu(), ref[1])
 
 
 # -- add_one --------------------------------------------------------------
@@ -666,8 +753,9 @@ def test_eval_detections_through_nms_keep_equal_the_plain_route(monkeypatch):
 
 def test_scan_on_the_card_equals_the_cpu():
     """The evaluate CLI's decode (conf 0.001, K = 4096: the sequential
-    scan, no kernel) on the card and on the CPU, from the same candidates:
-    the same kept indices."""
+    scan) on the card and on the CPU, from the same candidates: the same
+    idx and valid in every slot, through one ``nms_scan`` launch and no
+    ``nms_keep``."""
     from tpucv_torch.decode.yolov8 import topk_candidates
     from tpucv_torch.ops.nms import dispatch_batched_nms
 
@@ -677,7 +765,11 @@ def test_scan_on_the_card_equals_the_cpu():
         boxes, scores, cls = topk_candidates(
             raw, kw["reg_max"], kw["strides"], kw["conf_threshold"], 4096)
         off = boxes + cls[..., None].float() * 7680.0
+        before = (nms_scan.launches, nms_keep.launches)
         card = dispatch_batched_nms(off, scores, kw["iou_threshold"], 300)
+        torch.cuda.synchronize()
+        assert (nms_scan.launches, nms_keep.launches) == \
+            (before[0] + 1, before[1])
         cpu = dispatch_batched_nms(off.cpu(), scores.cpu(),
                                    kw["iou_threshold"], 300)
     assert torch.equal(card[0].cpu(), cpu[0])
@@ -944,7 +1036,7 @@ def test_centernet_targets_and_loss_on_the_card_equal_the_cpu():
 def test_centernet_decode_on_the_card_equals_the_cpu(diou):
     """decode_centernet (K 100, conf 0.1) on random maps at 96² (B=8): valid,
     classes and scores equal, boxes within 1e-3 px; nms_keep not
-    launched (the DIoU NMS is the scan)."""
+    launched, and the DIoU NMS one ``nms_scan`` launch."""
     from tpucv_torch.decode.centernet import decode_centernet
     from tpucv_torch.ops import cuda_nms as cn
 
@@ -953,9 +1045,10 @@ def test_centernet_decode_on_the_card_equals_the_cpu(diou):
     raw[..., 22:] = np.abs(raw[..., 22:]) * 4
     raw = torch.from_numpy(raw)
     kw = dict(num_classes=20, K=100, conf_threshold=0.1, use_diou_nms=diou)
-    before = cn.nms_keep.launches
+    before = (cn.nms_keep.launches, nms_scan.launches)
     got = [t.cpu() for t in decode_centernet(raw.cuda(), **kw)]
-    assert cn.nms_keep.launches == before
+    assert (cn.nms_keep.launches, nms_scan.launches) == \
+        (before[0], before[1] + int(diou))
     ref = decode_centernet(raw, **kw)
     assert torch.equal(got[3], ref[3]) and int(got[3].sum()) > 0
     assert torch.equal(got[2][got[3]], ref[2][ref[3]])
@@ -1240,15 +1333,16 @@ def test_zoo_on_the_card_equals_the_cpu(name, train, no_tf32):
 @pytest.mark.parametrize("topk,launches", [(1024, 1), (2048, 0)])
 def test_batched_non_max_suppression_on_the_card(topk, launches):
     """B=8, A=8,400, nc=80: one ``nms_keep`` launch for the whole batch at
-    K=1,024 and the scan (none) at 2,048; every output equal to the CPU
-    plain route's, boxes and scores bit for bit."""
+    K=1,024 and one ``nms_scan`` launch at 2,048; every output equal to the
+    CPU plain route's, boxes and scores bit for bit."""
     from tpucv_torch.ops.nms import batched_non_max_suppression
     from tpucv_torch.ops.nms_cases import yolo_pred_case
     pred = torch.from_numpy(yolo_pred_case(0, 8, 8400, 80))
     cpu = batched_non_max_suppression(pred, 0.25, 0.45, 300, topk)
-    before = nms_keep.launches
+    before = (nms_keep.launches, nms_scan.launches)
     card = batched_non_max_suppression(pred.cuda(), 0.25, 0.45, 300, topk)
-    assert nms_keep.launches - before == launches
+    assert (nms_keep.launches - before[0], nms_scan.launches - before[1]) \
+        == (launches, 1 - launches)
     valid = cpu[3]
     assert torch.equal(card[3].cpu(), valid) and valid.any()
     assert torch.equal(card[0].cpu(), cpu[0])

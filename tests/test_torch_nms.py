@@ -7,6 +7,11 @@ interpret mode, the scan ``nms`` and ``nms_fixpoint`` on every case of
 must be identical. The CUDA kernel itself is held against its plain
 version in ``tests/test_torch_cuda.py``, which needs a card.
 
+The scan's wrapper ``nms_scan`` (and ``nms``, which calls it) on CPU
+tensors, i.e. its plain version, equals tpucv's scan in every slot, idx
+and valid, invalid slots included, with IoU and with DIoU; its launch
+plan and input checks are held here too (the kernel itself on the card).
+
 The YOLO-style ``non_max_suppression`` and ``batched_non_max_suppression``
 (and ``batched_single_label_nms`` with ``xywh=True``) are held against
 tpucv's on ``nms_cases.yolo_pred_case`` (clustered boxes, tied scores,
@@ -28,6 +33,7 @@ from tpucv.ops.nms import (dispatch_batched_nms as jax_dispatch,
                            nms as jax_nms, nms_fixpoint as jax_fixpoint)
 from tpucv.ops.pallas_nms import pallas_nms
 from tpucv_torch.ops.cuda_nms import cuda_nms, nms_keep, nms_keep_reference
+from tpucv_torch.ops.cuda_scan import MAX_SCAN_BOXES, nms_scan, scan_plan
 from tpucv_torch.ops import nms as nms_mod
 from tpucv_torch.ops.nms import (batched_nms, batched_non_max_suppression,
                                  batched_single_label_nms,
@@ -35,7 +41,7 @@ from tpucv_torch.ops.nms import (batched_nms, batched_non_max_suppression,
                                  non_max_suppression)
 from tpucv_torch.ops.nms_cases import (chain_keep, class_offset_case,
                                        greedy_cases, presorted_case,
-                                       yolo_pred_case)
+                                       scan_cases, yolo_pred_case)
 
 torch.set_num_threads(1)
 
@@ -139,6 +145,67 @@ def test_wrapper_validates_inputs():
     before = nms_keep.launches
     nms_keep(b, s)                         # CPU: plain version, no launch
     assert nms_keep.launches == before
+
+
+# ------------------------------------------------------- the scan's wrapper
+SCAN_CASES = {
+    **{name: (case, thr, MAX_DET.get(name, min(case[0].shape[1], 300)))
+       for name, (case, thr) in CASES.items()},
+    **{name: (case, thr, max_det) for name, (case, thr, max_det, _) in
+       scan_cases().items() if name in ("B4_K1025", "centernet_B1_K100")},
+}
+
+
+@pytest.mark.parametrize("diou", [False, True])
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_nms_scan_equals_tpucv_scan(name, diou):
+    """Every slot, invalid ones included: tpucv's vmapped scan, and the
+    port's ``nms_scan`` and ``nms`` on CPU tensors (no launch)."""
+    (boxes, scores), thr, max_det = SCAN_CASES[name]
+    ref = jax.vmap(lambda b, s: jax_nms(b, s, thr, max_det, diou))(
+        jnp.asarray(boxes), jnp.asarray(scores))
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    before = nms_scan.launches
+    for idx, valid in (nms_scan(tb, ts, thr, max_det, diou),
+                       nms(tb, ts, thr, max_det, diou)):
+        assert idx.dtype == torch.int32 and valid.dtype == torch.bool
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ref[0]))
+        np.testing.assert_array_equal(valid.numpy(), np.asarray(ref[1]))
+    assert nms_scan.launches == before
+
+
+@pytest.mark.parametrize("K,threads,per_thread", [
+    (100, 128, 1), (1025, 544, 2), (2048, 1024, 2), (4096, 1024, 4)])
+def test_scan_plan(K, threads, per_thread):
+    """The least power of two candidates a thread that fits K in 1,024
+    threads, the threads whole warps; one CTA an image; the CTA's boxes
+    (16 bytes each) in dynamic shared memory."""
+    p = scan_plan(32, K)
+    assert (p.threads, p.per_thread, p.ctas) == (threads, per_thread, 32)
+    assert p.threads % 32 == 0 and p.threads <= 1024
+    assert p.threads * p.per_thread >= K > (p.threads - 32) * p.per_thread
+    assert p.smem_bytes == 16 * p.threads * p.per_thread
+    assert K <= MAX_SCAN_BOXES
+
+
+def test_nms_scan_validates_inputs():
+    b = torch.zeros(2, 8, 4)
+    s = torch.ones(2, 8)
+    with pytest.raises(TypeError):
+        nms_scan(b.double(), s.double(), 0.5, 4)
+    with pytest.raises(ValueError):
+        nms_scan(b[:, :, :3], s, 0.5, 4)
+    with pytest.raises(ValueError):
+        nms_scan(b, s[:, :7], 0.5, 4)
+    with pytest.raises(ValueError):
+        nms_scan(b.transpose(0, 1).contiguous().transpose(0, 1), s, 0.5, 4)
+    with pytest.raises(ValueError):
+        nms_scan(b, s.to("meta"), 0.5, 4)
+    before = nms_scan.launches
+    big = torch.zeros(1, MAX_SCAN_BOXES + 1, 4)  # the cap is the kernel's
+    idx, valid = nms_scan(big, torch.zeros(1, MAX_SCAN_BOXES + 1), 0.5, 3)
+    assert idx.tolist() == [[0, 0, 0]] and not valid.any()
+    assert nms_scan.launches == before
 
 
 # ---------------------------------------------- YOLO-style decode-and-NMS

@@ -315,7 +315,8 @@ def test_probe_refuses_the_card_when_there_is_none():
 # -- the build's flags -------------------------------------------------------
 
 def test_build_flags_are_per_source():
-    assert "--fmad=false" in _build.nvcc_flags("nms")
+    for name in ("nms", "nms_scan"):
+        assert "--fmad=false" in _build.nvcc_flags(name)
     for name in ("stream", "conv3x3"):
         assert "--fmad=false" not in _build.nvcc_flags(name)
         assert "arch=compute_90a,code=sm_90a" in _build.nvcc_flags(name)

@@ -39,6 +39,7 @@ NVCC_FLAGS = [
 SOURCE_FLAGS = {
     # no FMA contraction: the NMS IoU must round as XLA and PyTorch do
     "nms": ["--fmad=false"],
+    "nms_scan": ["--fmad=false"],
 }
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 NATIVE_LINK = {

@@ -1,8 +1,9 @@
 """CenterNet decode (counterpart of ``tpucv/decode/centernet.py``): the
 heatmap's sigmoid, 3x3 max-pool peak suppression, the top K over the
 flattened map, the offsets and sizes gathered at the peaks, then DIoU NMS
-by the sequential scan (``ops/nms.py:nms(diou=True)``; the NMS kernel's
-criterion is plain IoU, so it cannot take this one).
+by the sequential scan (``ops/nms.py:nms(diou=True)``: on the card one
+``nms_scan`` launch for the batch, the scan kernel's DIoU variant;
+``nms_keep``'s criterion is plain IoU, so it cannot take this one).
 
 The top K follows ``lax.top_k``: the map is flattened in tpucv's NHWC
 order (flat index ``(y·W + x)·C + c``) and sorted stably, so ties (the

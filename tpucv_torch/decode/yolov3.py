@@ -5,8 +5,9 @@ concatenated in (h, w, anchor) order, then the per-class multilabel NMS.
 
 tpucv passes ``cfg.decode.pre_nms_topk`` (4,096 by default, no cap as
 YOLOv8's predict has), so the shipped decode takes the sequential scan
-(``ops/nms.py:dispatch_batched_nms``: K > 1,024) and launches no
-``nms_keep``; at K <= 1,024 it takes the kernel."""
+(``ops/nms.py:dispatch_batched_nms``: K > 1,024), on the card one
+``nms_scan`` launch a batch and no ``nms_keep``; at K <= 1,024 it takes
+``nms_keep``."""
 
 from __future__ import annotations
 

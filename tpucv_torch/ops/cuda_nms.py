@@ -190,18 +190,21 @@ def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _check(boxes: torch.Tensor, scores: torch.Tensor) -> None:
+def _check(boxes: torch.Tensor, scores: torch.Tensor,
+           what: str = "nms_keep") -> None:
+    """What the NMS wrappers take: contiguous float32 boxes (B, K, 4) and
+    scores (B, K) on one device."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.dim() != 2 \
             or boxes.shape[:2] != scores.shape:
-        raise ValueError(f"nms_keep wants boxes (B, K, 4) and scores (B, K), "
+        raise ValueError(f"{what} wants boxes (B, K, 4) and scores (B, K), "
                          f"got {tuple(boxes.shape)} and {tuple(scores.shape)}")
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
-        raise TypeError(f"nms_keep wants float32, got {boxes.dtype} and "
+        raise TypeError(f"{what} wants float32, got {boxes.dtype} and "
                         f"{scores.dtype}")
     if boxes.device != scores.device:
         raise ValueError(f"boxes on {boxes.device}, scores on {scores.device}")
     if not (boxes.is_contiguous() and scores.is_contiguous()):
-        raise ValueError("nms_keep wants contiguous boxes and scores")
+        raise ValueError(f"{what} wants contiguous boxes and scores")
 
 
 def _on_card(what: str, B: int, K: int, dev: torch.device) -> None:

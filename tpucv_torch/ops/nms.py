@@ -2,7 +2,11 @@
 
 Every engine takes a fixed candidate count and returns a fixed ``max_det``
 slate with a validity mask; class-awareness uses the coordinate-offset
-trick. ``dispatch_batched_nms`` is the one home of the engine policy.
+trick. ``dispatch_batched_nms`` is the one home of the engine policy. Two
+engines, each one launch a batch on the card: ``nms_keep``
+(``cuda_nms.py``, the keep mask, K <= 1,024) and ``nms_scan``
+(``cuda_scan.py``, the sequential scan, K <= 4,096, and the only one
+with CenterNet's DIoU); on CPU tensors each runs its plain version.
 """
 
 from __future__ import annotations
@@ -12,42 +16,10 @@ from typing import Optional, Tuple
 import torch
 
 from tpucv_torch.ops.boxes import xywh2xyxy
-from tpucv_torch.ops.cuda_nms import (NEG_INF, MAX_BOXES, select_kept,
-                                      cuda_nms, nms_keep_reference)
+from tpucv_torch.ops.cuda_nms import (MAX_BOXES, select_kept, cuda_nms,
+                                      nms_keep_reference)
+from tpucv_torch.ops.cuda_scan import nms_scan
 from tpucv_torch.utils.profile import span
-
-
-def _nms_scan(boxes: torch.Tensor, scores: torch.Tensor,
-              iou_threshold: float, max_det: int,
-              diou: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched sequential greedy: (B, N, 4), (B, N) -> (B, max_det) x2.
-    Each step takes the best live candidate and kills what it overlaps —
-    O(max_det * N) memory-light work, for candidate floods."""
-    x1, y1, x2, y2 = boxes.unbind(-1)
-    areas = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
-    cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
-    live = torch.where(scores > 0, scores, torch.full_like(scores, NEG_INF))
-    bi = torch.arange(boxes.shape[0], device=boxes.device)
-    idxs, valids = [], []
-    for _ in range(max_det):
-        best = live.argmax(-1)                                 # (B,)
-        at = lambda v: v[bi, best][:, None]                    # noqa: E731
-        valids.append(at(live)[:, 0] > NEG_INF / 2)
-        inter = ((torch.minimum(at(x2), x2) - torch.maximum(at(x1), x1))
-                 .clamp(min=0) *
-                 (torch.minimum(at(y2), y2) - torch.maximum(at(y1), y1))
-                 .clamp(min=0))
-        iou = inter / (at(areas) + areas - inter + 1e-7)
-        if diou:
-            cw = torch.maximum(at(x2), x2) - torch.minimum(at(x1), x1)
-            ch = torch.maximum(at(y2), y2) - torch.minimum(at(y1), y1)
-            rho2 = (at(cx) - cx) ** 2 + (at(cy) - cy) ** 2
-            iou = iou - rho2 / (cw ** 2 + ch ** 2 + 1e-7)
-        live = torch.where(iou > iou_threshold,
-                           torch.full_like(live, NEG_INF), live)
-        live[bi, best] = NEG_INF
-        idxs.append(best.to(torch.int32))
-    return torch.stack(idxs, 1), torch.stack(valids, 1)
 
 
 def nms(
@@ -57,16 +29,17 @@ def nms(
     max_det: int = 300,
     diou: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy NMS over N xyxy boxes by sequential scan. With ``diou=True``
-    the criterion is distance-IoU (CenterNet's).
+    """Greedy NMS over N xyxy boxes by sequential scan (``nms_scan``: one
+    kernel launch for the batch on the card, N <= 4,096). With
+    ``diou=True`` the criterion is distance-IoU (CenterNet's).
 
     boxes (N, 4), scores (N,) with invalid candidates <= 0, or a batch of
     them, (B, N, 4) and (B, N), scanned together (tpucv vmaps its scan).
     Returns (indices ([B,] max_det) int32, valid ([B,] max_det) bool)."""
     if boxes.dim() == 3:
-        return _nms_scan(boxes, scores, iou_threshold, max_det, diou)
-    idx, valid = _nms_scan(boxes[None], scores[None], iou_threshold,
-                           max_det, diou)
+        return nms_scan(boxes, scores, iou_threshold, max_det, diou)
+    idx, valid = nms_scan(boxes[None], scores[None], iou_threshold, max_det,
+                          diou)
     return idx[0], valid[0]
 
 
@@ -106,19 +79,20 @@ def dispatch_batched_nms(off_boxes: torch.Tensor, top_scores: torch.Tensor,
                          iou_threshold: float, max_det: int):
     """Pick the exact-NMS engine for presorted (B, K) candidates:
 
-    * K <= 1024: ``cuda_nms`` — the CUDA kernel on a CUDA tensor, its plain
-      version on a CPU tensor;
-    * K > 1024 (evaluation floods at conf 0.001): the sequential scan,
-      which never builds the (K, K) matrix.
+    * K <= 1024: ``cuda_nms`` — the keep-mask kernels (``nms_keep``) on a
+      CUDA tensor, their plain version on a CPU tensor;
+    * K > 1024 (evaluation floods at conf 0.001, YOLOv7's 4,096):
+      ``nms_scan``, the sequential scan, which never builds the (K, K)
+      matrix — its kernel on a CUDA tensor (K <= 4,096), its plain
+      version on a CPU tensor.
 
     Returns (idx (B, max_det) into the K axis, valid (B, max_det)).
     Either engine runs in the span ``tpucv.nms``; ``nms_keep.launches``
-    tells them apart."""
+    and ``nms_scan.launches`` tell them apart."""
     K = top_scores.shape[-1]
     with span("tpucv.nms"):
         if K > MAX_BOXES:
-            return _nms_scan(off_boxes, top_scores, iou_threshold, max_det,
-                             diou=False)
+            return nms_scan(off_boxes, top_scores, iou_threshold, max_det)
         return cuda_nms(off_boxes, top_scores, iou_threshold, max_det,
                         presorted=True)
 
@@ -139,7 +113,7 @@ def batched_single_label_nms(
     first on ties, as ``lax.top_k`` orders them), as xyxy, offset by
     class x 7680 px unless ``class_agnostic``, go through
     ``dispatch_batched_nms`` for the whole batch: ``nms_keep`` (one launch)
-    at K <= 1024, the scan above.
+    at K <= 1024, ``nms_scan`` (one launch) above.
 
     Returns fixed-shape (boxes (B, max_det, 4) xyxy, scores, classes
     int32, valid)."""
@@ -176,7 +150,7 @@ def batched_non_max_suppression(
     (or agnostic) exact greedy NMS, capped at ``max_det``, re-gated and
     the invalid slots zeroed: ``batched_single_label_nms`` with tpucv's
     defaults. At K = min(pre_nms_topk, A) <= 1024 the whole batch is one
-    ``nms_keep`` launch on the card; above, the scan.
+    ``nms_keep`` launch on the card; above, one ``nms_scan`` launch.
 
     Returns (boxes (B, max_det, 4) xyxy, scores, classes int32, valid)."""
     return batched_single_label_nms(pred, conf_threshold, iou_threshold,

@@ -5,7 +5,8 @@ The random, chain and presorted cases are those of
 ``tests/test_pallas_nms.py``; the edge cases sit on the decision edges of
 the IoU test; the block cases on the edges of the kernels' 32-box blocks;
 the class-offset cases have decode's shape (boxes in a 640 image offset by
-class * 7680, scores descending with an invalid tail); the SSD cases the
+class * 7680, scores descending with an invalid tail); the scan cases the
+sequential scan's shapes and edges (``scan_cases``); the SSD cases the
 multilabel decode's (SSD300's K = 1,024 candidates: boxes in a 300 image,
 the same box under several of 20 classes, offsets up to 19 * 7680 px,
 where the f32 spacing is 1/64, and tied scores).
@@ -183,6 +184,62 @@ def kernel_cases():
         **{f"offsets_B128_K{K}_iou{t}":
            (class_offset_case(K + int(t * 10), 128, K), t)
            for K in (512, 1024) for t in (0.5, 0.7)},
+    }
+
+
+def scan_case(seed, B, K, thr, valid_share, n_cls=80, n_obj=60):
+    """Sequential-scan inputs, B rows of K candidates in no order: boxes
+    clustered about ``n_obj`` objects in a 640 image (so a round kills
+    many), offset by class x 7680 px; scores in steps of 1/64 (ties), about
+    ``valid_share`` of them > 0 and a few -0.0 or negative. Every 17th
+    candidate is an exact copy (box and score) of the one before it. Near
+    x = 700,000 px sit pairs whose IoU computes to exactly f32(thr) (both
+    kept: the test is strict) and pairs just above it (one kept). With
+    B > 1 the last row is all invalid and the one before it has 10 valid
+    candidates, so it runs out before any ``max_det`` above 10."""
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(40, 600, (B, n_obj, 2))
+    size = rng.uniform(16, 200, (B, n_obj, 2))
+    obj = rng.integers(0, n_obj, (B, K))
+    rows = np.arange(B)[:, None]
+    wh = size[rows, obj] * rng.uniform(0.7, 1.3, (B, K, 2))
+    cxy = centre[rows, obj] + rng.normal(0, 0.1, (B, K, 2)) * wh
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1)
+    boxes += rng.integers(0, n_cls, (B, K, 1)) * 7680.0
+    scores = rng.integers(1, 65, (B, K)) / 64.0
+    scores[rng.random((B, K)) >= valid_share] = 0.0
+    scores[rng.random((B, K)) < 0.01] = -0.0
+    scores[rng.random((B, K)) < 0.01] = -0.5
+    boxes[:, 1::17] = boxes[:, 0:K - 1:17][:, :len(range(1, K, 17))]
+    scores[:, 1::17] = scores[:, 0:K - 1:17][:, :len(range(1, K, 17))]
+    h = np.float32(10 * thr)
+    for i in range(min(4, K // 8)):
+        x = 700_000.0 + 100 * i
+        at = rng.choice(K, 4, replace=False)
+        boxes[:, at] = [[x, 0, x + 10, 10], [x, 0, x + 10, h],
+                        [x + 50, 0, x + 60, 10],
+                        [x + 50, 0, x + 60, h + np.float32(1e-3)]]
+        scores[:, at] = [1.0, 63 / 64, 1.0, 63 / 64]
+    if B > 1:
+        scores[-1] = 0.0
+        scores[-2, np.argsort(-scores[-2], kind="stable")[10:]] = 0.0
+    return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+def scan_cases():
+    """The scan's shapes, name -> ((boxes, scores), thr, max_det, diou):
+    YOLOv7's decode (B=32, K=4,096, max_det 100, IoU 0.3, ~40% valid), the
+    evaluate CLIs' conf-0.001 floods (max_det 300, IoU 0.7, nearly all
+    valid), the zoo's K = 2,048, the least K above nms_keep's 1,024, and
+    CenterNet's DIoU (K = 100)."""
+    return {
+        "yolo7_B32_K4096": (scan_case(1, 32, 4096, 0.3, 0.4), 0.3, 100, False),
+        "flood_B32_K4096": (scan_case(2, 32, 4096, 0.7, 0.98), 0.7, 300,
+                            False),
+        "zoo_B8_K2048": (scan_case(3, 8, 2048, 0.45, 0.7), 0.45, 300, False),
+        "B4_K1025": (scan_case(4, 4, 1025, 0.5, 0.5), 0.5, 50, False),
+        "centernet_B1_K100": (scan_case(5, 1, 100, 0.5, 0.6, n_cls=1,
+                                        n_obj=12), 0.5, 100, True),
     }
 
 

@@ -13,7 +13,7 @@ or exported graph gains no node from it.
 
 The program's spans: ``tpucv.detect.{fill,upload,queue,download,unbox}``
 tile each batch of ``DetectionAlgorithm._batched_detections``,
-``tpucv.nms`` covers ``ops.nms.dispatch_batched_nms``, and
+``tpucv.nms`` covers ``ops.nms.dispatch_batched_nms`` (either engine), and
 ``tpucv.train.{forward,loss,backward,optimizer}`` the stages of
 ``train.state.make_train_step``'s step.
 """
