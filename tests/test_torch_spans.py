@@ -18,6 +18,10 @@ spans the program puts where its work happens, on the CPU.
 - The train step: each ``tpucv.train.*`` span closes once a step, and the
   forward, loss and backward once a micro-batch at ``grad_accum`` 2; the
   ``lap`` callback still gets the same stages in the same order.
+- DeepLabV3+'s train step (65², B=2): each ``tpucv.seg.*`` span closes
+  once a step, inside ``tpucv.train.forward`` and in the forward's order;
+  ``torch.export`` of the eval model (ResNet-50 at 33²) gains no node from
+  them and gives the same logits as with the span stubbed out.
 - ``serving.MicroBatcher``'s ``/stats``: ``batch_ms``, the queue wait and
   the stage means.
 """
@@ -370,6 +374,59 @@ def test_lap_sees_each_span_closed(trainer):
     step(state, batch, lambda s: seen.append(
         (s, counts().get(STAGE_SPANS[s], 0))))
     assert seen == [(s, 1) for s in LAPS]
+
+
+# -------- DeepLabV3+'s forward ----------------------------------------------
+SEG = ["tpucv.seg.backbone", "tpucv.seg.aspp", "tpucv.seg.decoder"]
+
+
+def test_deeplab_spans_nest_in_the_train_forward():
+    cfg, algo_cls, _ = export_from_registry("deeplabv3plus")
+    cfg.train.mixed_precision = False
+    algo = algo_cls(cfg, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    batch = {"images": torch.rand(2, 65, 65, 3, generator=g),
+             "labels": torch.randint(0, 21, (2, 65, 65), generator=g,
+                                     dtype=torch.int32)}
+    state = TrainState.create(algo.init_variables(seed=0).train(), 1e-3)
+    step = make_train_step(algo.build_loss(), device="cpu")
+    step(state, batch)
+    assert counts() == {**{k: 1 for k in SEG},
+                        **{STAGE_SPANS[s]: 1 for s in LAPS}}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(state, batch)
+    spans = {}
+    for e in prof.events():
+        if e.name.startswith("tpucv."):
+            spans.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    assert all(len(spans[k]) == 1 for k in SEG + ["tpucv.train.forward"])
+    (f0, f1), = spans["tpucv.train.forward"]
+    seg = [spans[k][0] for k in SEG]
+    assert all(f0 <= a and b <= f1 for a, b in seg)
+    assert all(a[1] <= b[0] for a, b in zip(seg, seg[1:]))
+    assert profile.profiled("tpucv.seg.aspp") == \
+        profile.recent("tpucv.seg.aspp", 1)
+
+
+def test_exported_deeplab_gains_no_node(monkeypatch):
+    from tpucv_torch import deploy
+    from tpucv_torch.models import deeplabv3plus
+
+    model = deeplabv3plus.DeeplabV3Plus(backbone="resnet50").eval()
+    x = torch.rand(1, 33, 33, 3, generator=torch.Generator().manual_seed(0))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        spanned = deploy._export(model, x)
+    monkeypatch.setattr(deeplabv3plus, "span", _Stub)
+    stubbed = deploy._export(model, x)
+    nodes = _nodes(spanned.graph_module)
+    assert nodes == _nodes(stubbed.graph_module)
+    assert not any("profiler" in n for n in nodes)
+    with torch.no_grad():
+        assert torch.equal(spanned.module()(x), stubbed.module()(x))
+    assert profile.names() == []
 
 
 # -------- the serving batcher's /stats --------------------------------------

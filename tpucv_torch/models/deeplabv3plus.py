@@ -36,7 +36,11 @@ them: ``backbone.*`` (torchvision's ResNet names),
 
 ``forward`` takes tpucv's NHWC input (B, H, W, 3) and returns the logits
 NCHW, (B, nc, H, W) f32. At nc 21 DeepLabV3+-ResNet101 has 58,753,973
-parameters.
+parameters. Its three stages are spans (``utils/profile.py:span``), each
+closed once a forward: ``tpucv.seg.backbone`` (the ResNet),
+``tpucv.seg.aspp`` (ASPP) and ``tpucv.seg.decoder`` (the low-level
+projection, the resize to its size, the concat, the 3x3, the classifier
+and the resize to the input).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from torch import nn
 
 from tpucv_torch.models.resnet import LAYERS, ResNet, conv_bn
 from tpucv_torch.nn.blocks import StepDropout, init_weights
+from tpucv_torch.utils.profile import span
 
 def upsample(x: torch.Tensor, size) -> torch.Tensor:
     """``jax.image.resize(x, size, "bilinear")`` for an upsample, NCHW."""
@@ -115,8 +120,13 @@ class DeepLabHeadV3Plus(nn.Module):
             nn.Conv2d(ASPP_CH, num_classes, 1))
 
     def forward(self, feats: Dict[str, torch.Tensor]) -> torch.Tensor:
-        low = self.project(feats["low_level"])
-        y = upsample(self.aspp(feats["out"]), low.shape[2:])
+        return self.decode(feats["low_level"], self.aspp(feats["out"]))
+
+    def decode(self, low_level: torch.Tensor,
+               y: torch.Tensor) -> torch.Tensor:
+        """The decoder on layer 1's feature and the ASPP output."""
+        low = self.project(low_level)
+        y = upsample(y, low.shape[2:])
         y = F.relu(self.classifier[0](torch.cat([low, y], 1)))
         return self.classifier[3](y)
 
@@ -138,5 +148,10 @@ class DeeplabV3Plus(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         H, W = x.shape[1:3]
-        y = self.classifier(self.backbone(x.permute(0, 3, 1, 2)))
-        return upsample(y.float(), (H, W))
+        with span("tpucv.seg.backbone"):
+            feats = self.backbone(x.permute(0, 3, 1, 2))
+        with span("tpucv.seg.aspp"):
+            y = self.classifier.aspp(feats["out"])
+        with span("tpucv.seg.decoder"):
+            y = self.classifier.decode(feats["low_level"], y)
+            return upsample(y.float(), (H, W))

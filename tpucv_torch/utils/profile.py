@@ -15,7 +15,9 @@ The program's spans: ``tpucv.detect.{fill,upload,queue,download,unbox}``
 tile each batch of ``DetectionAlgorithm._batched_detections``,
 ``tpucv.nms`` covers ``ops.nms.dispatch_batched_nms`` (either engine), and
 ``tpucv.train.{forward,loss,backward,optimizer}`` the stages of
-``train.state.make_train_step``'s step.
+``train.state.make_train_step``'s step, and
+``tpucv.seg.{backbone,aspp,decoder}`` the stages of DeepLabV3+'s forward
+(``models/deeplabv3plus.py``; inside ``tpucv.train.forward`` in a step).
 """
 
 from __future__ import annotations
