@@ -1348,3 +1348,86 @@ def test_batched_non_max_suppression_on_the_card(topk, launches):
     assert torch.equal(card[0].cpu(), cpu[0])
     assert torch.equal(card[1].cpu(), cpu[1])
     assert torch.equal(card[2].cpu()[valid], cpu[2][valid])
+
+
+# ------------------------------------------------ the detect call's staging
+COCO_SHAPES = [(480, 640), (640, 480), (427, 640), (640, 427), (640, 640)]
+
+
+def _staging_setup():
+    """YOLOv8n as shipped (640, bf16) with a sharpened class branch, and
+    40 raw images of COCO's five shapes in a seeded order."""
+    from tpucv_torch.builder import export_from_registry
+
+    cfg, algo_cls, _ = export_from_registry("yolo8_det")
+    algo = algo_cls(cfg, device="cuda")
+    model = algo.init_variables(seed=0)
+    with torch.no_grad():
+        for head in model.model[22].cv3:
+            head[-1].bias.zero_()
+            head[-1].weight.mul_(3000.0)
+    rng = np.random.default_rng(4)
+    index = [(rng.integers(0, 256, (*COCO_SHAPES[k], 3), np.uint8),)
+             for k in rng.integers(0, len(COCO_SHAPES), 40)]
+    return algo, model, index
+
+
+def test_staged_detections_equal_the_pageable_path(monkeypatch):
+    """Five consecutive batches of 8 through the page-locked staging equal,
+    bit for bit, a run whose every batch is a fresh zeroed array copied
+    from pageable memory; the staging is pinned, made once and reused."""
+    from tpucv_torch.algorithms.base import CanvasStaging
+
+    algo, model, index = _staging_setup()
+    fill = algo._fill_canvases
+
+    def fresh(index, idxs, batch_size, C, out=None):
+        got = fill(index, idxs, batch_size, C)
+        out[...] = got[0]
+        return (out,) + tuple(got[1:])
+
+    with monkeypatch.context() as m:
+        m.setattr(algo, "_fill_canvases", fresh)
+        m.setattr(algo, "_canvas_staging", lambda B, C: CanvasStaging(
+            B, C, torch.device("cpu")))
+        want = list(algo._batched_detections(model, index, 8, 0.25))
+    assert algo._staging is None
+    allocations, reuses = CanvasStaging.allocations, CanvasStaging.reuses
+    pinned = CanvasStaging.pinned_bytes
+    got = list(algo._batched_detections(model, index, 8, 0.25))
+    stage = algo._staging
+    assert all(t.is_pinned() for t in stage._host)
+    assert CanvasStaging.allocations == allocations + 1
+    assert CanvasStaging.reuses == reuses + 4
+    assert CanvasStaging.pinned_bytes - pinned == 8 * 640 * 640 * 3 + \
+        8 * (2 + 4 + 1) * 4
+    assert sum(len(b) for _, b, _, _ in want) > 0
+    assert len(got) == len(want) == 40
+    for (i, b, s, c), (j, b2, s2, c2) in zip(got, want):
+        assert i == j
+        np.testing.assert_array_equal(b, b2)
+        np.testing.assert_array_equal(s, s2)
+        np.testing.assert_array_equal(c, c2)
+
+
+def test_fill_after_a_non_blocking_upload_waits_for_its_copies():
+    """With the stream busy, an upload's copies are still queued when it
+    returns; ``wait`` holds the next fill off until they have read the
+    staging, so the device gets the first batch's bytes."""
+    from tpucv_torch.ops.preprocess import host_letterbox_geom
+
+    algo, _, index = _staging_setup()
+    B, C = 8, algo.raw_canvas
+    stage = algo._canvas_staging(B, C)
+    first = algo._fill_canvases(index[:B], range(B), B, C)
+    algo._fill_canvases(index[:B], range(B), B, C, out=stage.canvases)
+    geom, hscale = host_letterbox_geom(first[1], algo.input_size)
+    torch.cuda._sleep(200_000_000)                   # ~0.1 s of the stream
+    canv_d, hw_d, _, _ = stage.upload(algo.device, first[1], geom, hscale)
+    assert not stage._copied.query()
+    stage.wait()
+    assert stage._copied.query()
+    algo._fill_canvases(index[B:2 * B], range(B), B, C, out=stage.canvases)
+    torch.cuda.synchronize()
+    assert torch.equal(canv_d.cpu(), torch.from_numpy(first[0]))
+    assert torch.equal(hw_d.cpu(), torch.from_numpy(first[1]))

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import json
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,6 +52,57 @@ def seeded_model(model: nn.Module, seed: int, device) -> nn.Module:
     return model
 
 
+class CanvasStaging:
+    """The host side of a batched detect call's upload, reused batch after
+    batch: ``canvases`` (B, C, C, 3) uint8, which ``_fill_canvases`` fills
+    in place, and room for the letterbox's ``hw`` / ``geom`` / ``hscale``.
+
+    On a CUDA device all four are page-locked, so ``upload`` issues its
+    copies without blocking the host, and an event recorded after them
+    makes ``wait`` hold the next fill off until they have read the bytes.
+    On the CPU they are plain memory that ``upload`` hands on uncopied.
+
+    Process-wide counters: ``allocations`` (stagings made), ``reuses``
+    (batches filled into one already made) and ``pinned_bytes`` (bytes
+    page-locked by the allocations).
+    """
+
+    allocations = 0
+    reuses = 0
+    pinned_bytes = 0
+
+    def __init__(self, batch_size: int, C: int, device: torch.device):
+        self.key = (batch_size, C)
+        pinned = device.type == "cuda"
+        self._host = [torch.empty(shape, dtype=dtype, pin_memory=pinned)
+                      for shape, dtype in (
+                          ((batch_size, C, C, 3), torch.uint8),
+                          ((batch_size, 2), torch.int32),
+                          ((batch_size, 4), torch.int32),
+                          ((batch_size,), torch.float32))]
+        self.canvases = self._host[0].numpy()
+        self._copied = torch.cuda.Event() if pinned else None
+        CanvasStaging.allocations += 1
+        if pinned:
+            CanvasStaging.pinned_bytes += sum(t.nbytes for t in self._host)
+
+    def wait(self) -> None:
+        """Return once the last ``upload``'s copies have read the buffers."""
+        if self._copied is not None:
+            self._copied.synchronize()
+
+    def upload(self, device: torch.device, hw, geom, hscale):
+        """``canvases``, ``hw``, ``geom`` and ``hscale`` on ``device``."""
+        if self._copied is None:
+            return tuple(torch.from_numpy(a).to(device)
+                         for a in (self.canvases, hw, geom, hscale))
+        for t, a in zip(self._host[1:], (hw, geom, hscale)):
+            t.numpy()[:] = a
+        out = tuple(t.to(device, non_blocking=True) for t in self._host)
+        self._copied.record(torch.cuda.current_stream(device))
+        return out
+
+
 class DetectionAlgorithm:
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
@@ -60,6 +113,11 @@ class DetectionAlgorithm:
         self.mixed_precision = cfg.train.mixed_precision
         self.dtype = torch.bfloat16 if self.mixed_precision else torch.float32
         self.class_names = get_dataset_cfg(cfg.dataset.name)["classes"]
+        # the batched detect loop's staging (newest (B, C) only), held by
+        # one thread at a time, and the pool that places its images
+        self._staging: Optional[CanvasStaging] = None
+        self._staging_lock = threading.Lock()
+        self._placer: Optional[ThreadPoolExecutor] = None
 
     # -------- subclass contract ------------------------------------------
     def build_model(self) -> nn.Module:
@@ -150,7 +208,8 @@ class DetectionAlgorithm:
     def raw_canvas(self) -> int:
         return max(self.RAW_CANVAS, self.input_size)
 
-    def _fill_canvases(self, index, idxs, batch_size: int, C: int):
+    def _fill_canvases(self, index, idxs, batch_size: int, C: int,
+                       out: Optional[np.ndarray] = None):
         """Place one batch of images top-left on fixed uint8 canvases,
         nearest pre-shrinking images larger than C. Each index item is a
         tuple whose first entry is an RGB ndarray or an image path.
@@ -158,14 +217,28 @@ class DetectionAlgorithm:
         Returns (canvases (batch_size, C, C, 3), hw (batch_size, 2) placed
         dims, oshapes original dims, prescales per-axis pre-shrink ratios).
 
+        ``out``: a C-contiguous (batch_size, C, C, 3) uint8 array to fill
+        in place and return as ``canvases``, whatever it held: every byte
+        outside the placed images is zeroed, so it comes out equal to the
+        fresh array made without it.
+
         Fast path: one threaded native call decodes a batch of JPEG paths
         (``native/imagepipe.cpp``, bit-identical to the loop below); what
         it cannot take (ndarrays, non-JPEG files) goes through
-        ``read_image`` and cv2.
+        ``read_image`` and cv2. Reading, placing and zeroing run an image
+        a task on the algorithm's thread pool.
         """
         from tpucv_torch.native import imagepipe
 
-        canvases = np.zeros((batch_size, C, C, 3), np.uint8)
+        if out is None:
+            canvases, stale = np.zeros((batch_size, C, C, 3), np.uint8), False
+        elif (out.shape == (batch_size, C, C, 3) and out.dtype == np.uint8
+              and out.flags.c_contiguous):
+            canvases, stale = out, True
+        else:
+            raise ValueError(
+                f"out must be C-contiguous uint8 ({batch_size}, {C}, {C}, "
+                f"3); got {out.dtype} {out.shape}")
         hw = np.ones((batch_size, 2), np.int32)
         oshapes = [None] * len(idxs)
         prescales = [None] * len(idxs)
@@ -174,6 +247,7 @@ class DetectionAlgorithm:
         # __getitem__
         srcs = [index[i][0] for i in idxs]
         if all(isinstance(p, str) for p in srcs) and imagepipe.available():
+            # the native code writes each decoded image and nothing else
             _, nhw, norig, ok = imagepipe.decode_to_canvas(
                 srcs, C, out=canvases)
             for j in np.flatnonzero(ok):
@@ -182,24 +256,59 @@ class DetectionAlgorithm:
                 oshapes[j] = (oh, ow)
                 prescales[j] = (nhw[j, 1] / ow, nhw[j, 0] / oh)
                 done[j] = True
-        for j, src in enumerate(srcs):
-            if done[j]:
-                continue
-            img = read_image(src) if isinstance(src, str) else src
-            oh, ow = img.shape[:2]
-            if oh > C or ow > C:
-                # rare: nearest pre-shrink on the host so the image fits the
-                # canvas, keeping one resampling family end to end
-                import cv2
-                pre = C / max(oh, ow)
-                img = cv2.resize(img, (int(ow * pre), int(oh * pre)),
-                                 interpolation=cv2.INTER_NEAREST)
-            h, w = img.shape[:2]
-            canvases[j, :h, :w] = img
-            hw[j] = (h, w)
-            oshapes[j] = (oh, ow)
-            prescales[j] = (w / ow, h / oh)
+
+        def place(j):
+            canvas = canvases[j]
+            if j >= len(srcs):
+                if stale:
+                    canvas[...] = 0
+                return
+            if not done[j]:
+                src = srcs[j]
+                img = read_image(src) if isinstance(src, str) else src
+                oh, ow = img.shape[:2]
+                if oh > C or ow > C:
+                    # rare: nearest pre-shrink on the host so the image
+                    # fits the canvas, keeping one resampling family end
+                    # to end
+                    import cv2
+                    pre = C / max(oh, ow)
+                    img = cv2.resize(img, (int(ow * pre), int(oh * pre)),
+                                     interpolation=cv2.INTER_NEAREST)
+                h, w = img.shape[:2]
+                canvas[:h, :w] = img
+                hw[j] = (h, w)
+                oshapes[j] = (oh, ow)
+                prescales[j] = (w / ow, h / oh)
+            if stale:
+                h, w = hw[j]
+                canvas[:h, w:] = 0
+                canvas[h:] = 0
+
+        if self._placer is None:
+            # the copies are bound by the host's memory: on the H100's
+            # 8-core host 4 threads fill a batch of 32 COCO-shaped images
+            # as fast as 8
+            self._placer = ThreadPoolExecutor(
+                max(1, len(os.sched_getaffinity(0)) // 2),
+                thread_name_prefix="tpucv-canvas")
+        futures = [self._placer.submit(place, j)
+                   for j in range(batch_size if stale else len(srcs))]
+        wait(futures)
+        for f in futures:
+            f.result()
         return canvases, hw, oshapes, prescales
+
+    def _canvas_staging(self, batch_size: int, C: int) -> CanvasStaging:
+        """This algorithm's staging for (batch_size, C), reused while the
+        shape holds; another shape replaces it. Call under
+        ``_staging_lock``."""
+        stage = self._staging
+        if stage is not None and stage.key == (batch_size, C):
+            CanvasStaging.reuses += 1
+            return stage
+        self._staging = stage = CanvasStaging(batch_size, C, self.device)
+        return stage
 
     def _batched_detections(self, model: nn.Module, index, batch_size: int,
                             conf_threshold: float):
@@ -207,6 +316,10 @@ class DetectionAlgorithm:
         each raw image on a fixed uint8 canvas; resize, pad, normalise,
         forward, decode and NMS run on ``self.device``. Yields
         (i, boxes xyxy in original pixels, scores, classes) per image.
+
+        The canvases are the algorithm's ``CanvasStaging`` for (B, C),
+        filled in place batch after batch: page-locked on CUDA, so the
+        upload does not block the host.
 
         Five spans (``utils.profile.span``) tile each batch: ``fill`` (the
         canvases and the letterbox geometry), ``upload`` (the host-to-
@@ -222,20 +335,26 @@ class DetectionAlgorithm:
         n = len(index)
         for start in range(0, n, batch_size):
             idxs = list(range(start, min(start + batch_size, n)))
-            with span("tpucv.detect.fill"):
-                canvases, hw, oshapes, prescales = self._fill_canvases(
-                    index, idxs, batch_size, C)
-                # f64 letterbox geometry on host: exact reference arithmetic
-                geom, hscale = host_letterbox_geom(hw, s)
-            with torch.inference_mode():
-                with span("tpucv.detect.upload"):
-                    canvases_d, hw_d, geom_d, hscale_d = (
-                        torch.from_numpy(a).to(dev)
-                        for a in (canvases, hw, geom, hscale))
-                with span("tpucv.detect.queue"):
-                    lb, scale, pad = letterbox_images(
-                        canvases_d, hw_d, s, geom=geom_d, scale=hscale_d)
-                    outs = infer(model, lb)
+            # one thread at a time from the fill until the letterbox has
+            # read the staging: the CPU's upload hands it on uncopied
+            with self._staging_lock:
+                with span("tpucv.detect.fill"):
+                    stage = self._canvas_staging(batch_size, C)
+                    stage.wait()
+                    _, hw, oshapes, prescales = self._fill_canvases(
+                        index, idxs, batch_size, C, out=stage.canvases)
+                    # f64 letterbox geometry on host: exact reference
+                    # arithmetic
+                    geom, hscale = host_letterbox_geom(hw, s)
+                with torch.inference_mode():
+                    with span("tpucv.detect.upload"):
+                        canvases_d, hw_d, geom_d, hscale_d = stage.upload(
+                            dev, hw, geom, hscale)
+                    with span("tpucv.detect.queue"):
+                        lb, scale, pad = letterbox_images(
+                            canvases_d, hw_d, s, geom=geom_d,
+                            scale=hscale_d)
+                        outs = infer(model, lb)
             with span("tpucv.detect.download"):
                 boxes_b, scores_b, classes_b, valid_b, scale_b, pad_b = (
                     t.cpu().numpy() for t in (*outs, scale, pad))
