@@ -1248,12 +1248,14 @@ class Smoke:
     def phase_breakdown(self, algo, model, imgs, reps=5):
         """Where a served batch of 8 spends its time, on the host clock with
         a device sync after each stage (median of ``reps``), beside one
-        whole ``_batched_detections`` batch without HTTP."""
+        whole ``_batched_detections`` batch without HTTP. The fill and the
+        upload are the algorithm's staged batch: ``fill_canvases`` is its
+        ``tpucv.detect.fill`` span, ``h2d`` the rest of it to a sync."""
         from tpucv_torch.algorithms.yolov8 import yolo_decode_args
         from tpucv_torch.decode.yolov8 import decode_boxes
-        from tpucv_torch.ops.preprocess import (host_letterbox_geom,
-                                                letterbox_images,
+        from tpucv_torch.ops.preprocess import (letterbox_images,
                                                 normalize_images)
+        from tpucv_torch.utils import profile
 
         torch = self.torch
         kw = yolo_decode_args(algo.cfg, algo.nc, None)
@@ -1269,16 +1271,15 @@ class Smoke:
         for _ in range(reps):
             with torch.inference_mode():
                 t = time.perf_counter()
-                canv, hw, _, _ = algo._fill_canvases(index, range(8), 8,
-                                                     algo.raw_canvas)
-                geom, hs = host_letterbox_geom(hw, algo.input_size)
-                t = lap("fill_canvases", t)
-                dev = [torch.from_numpy(a).to(self.dev)
-                       for a in (canv, hw, geom, hs)]
-                t = lap("h2d", t)
-                lb, _, _ = letterbox_images(dev[0], dev[1], algo.input_size,
-                                            geom=dev[2], scale=dev[3])
-                t = lap("letterbox", t)
+                with algo._staged_batch(index, range(8), 8) as (
+                        canv, hw, geom, hs, _, _):
+                    (fill_ns,) = profile.recent("tpucv.detect.fill", 1)
+                    stages.setdefault("fill_canvases", []).append(
+                        fill_ns / 1e6)
+                    t = lap("h2d", t + fill_ns / 1e9)
+                    lb, _, _ = letterbox_images(canv, hw, algo.input_size,
+                                                geom=geom, scale=hs)
+                    t = lap("letterbox", t)
                 with torch.autocast("cuda", dtype=torch.bfloat16):
                     raw = model(normalize_images(lb, algo.dtype))
                 t = lap("normalize_forward", t)
@@ -2303,9 +2304,9 @@ class Smoke:
         from tpucv_torch.algorithms.base import DetectionAlgorithm
         from tpucv_torch.builder import export_from_registry
         from tpucv_torch.data.coco import COCOIndex
-        from tpucv_torch.decode import yolov8 as decode
         from tpucv_torch.metrics.coco_map import COCOMeanAP
         from tpucv_torch.native import imagepipe, load
+        from tpucv_torch.ops import nms as nms_mod
         from tpucv_torch.ops.cuda_nms import nms_keep
         from tpucv_torch.ops.cuda_scan import nms_scan
 
@@ -2332,7 +2333,7 @@ class Smoke:
                 dts = json.load(f)
             stages, scans, rec_stats = self._recorded_evaluate(
                 cli, argv, DetectionAlgorithm,
-                (decode, "dispatch_batched_nms"), COCOMeanAP)
+                (nms_mod, "dispatch_batched_nms"), COCOMeanAP)
         finally:
             os.chdir(cwd)
             if env_was is None:
@@ -2366,7 +2367,7 @@ class Smoke:
               "the CLI's stats are not the native engine's")
 
         kept, loop_ms, per_full_batch = self._scans_equal_cpu(
-            scans, stages, n_img, batch, decode.dispatch_batched_nms)
+            scans, stages, n_img, batch, nms_mod.dispatch_batched_nms)
         cfg = export_from_registry("yolo8_det")[0]
         loader = self._jpeg_loader_rates(index, cfg)
         row = {"images": n_img, "batch": batch, "K": 4096,
@@ -2594,20 +2595,14 @@ class Smoke:
 
     # ------------------------------------------------------------ int8 --
     def letterboxed(self, algo, imgs):
-        """The images on the algorithm's canvases, letterboxed on the card
-        as ``_batched_detections`` does: uint8 (B, S, S, 3)."""
-        from tpucv_torch.ops.preprocess import (host_letterbox_geom,
-                                                letterbox_images)
+        """The images through the algorithm's staged batch, letterboxed on
+        the card as ``_batched_detections`` does: uint8 (B, S, S, 3)."""
+        from tpucv_torch.ops.preprocess import letterbox_images
 
-        torch = self.torch
-        canv, hw, _, _ = algo._fill_canvases([(im,) for im in imgs],
-                                             range(len(imgs)), len(imgs),
-                                             algo.raw_canvas)
-        geom, hs = host_letterbox_geom(hw, algo.input_size)
-        lb, _, _ = letterbox_images(
-            *(torch.from_numpy(a).to(self.dev) for a in (canv, hw)),
-            algo.input_size, geom=torch.from_numpy(geom).to(self.dev),
-            scale=torch.from_numpy(hs).to(self.dev))
+        with algo._staged_batch([(im,) for im in imgs], range(len(imgs)),
+                                len(imgs)) as (canv, hw, geom, hs, _, _):
+            lb, _, _ = letterbox_images(canv, hw, algo.input_size,
+                                        geom=geom, scale=hs)
         return lb
 
     def phase_int8_parity(self, imgs, names=("yolo8_det", "yolo8_seg",

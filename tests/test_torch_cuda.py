@@ -685,8 +685,9 @@ def test_imagepipe_on_the_card_host(tmp_path):
         np.testing.assert_array_equal(read_image(p), r)
     cfg, algo_cls, _ = export_from_registry("yolo8_det")
     algo = algo_cls(cfg, device="cuda")
-    canv, hw, oshapes, _ = algo._fill_canvases([(p,) for p in paths],
-                                               range(3), 4, 640)
+    canv, hw, oshapes, _ = algo._fill_canvases(
+        [(p,) for p in paths], range(3), 4, 640,
+        out=np.full((4, 640, 640, 3), 255, np.uint8))
     for j, r in enumerate(ref):
         assert oshapes[j] == r.shape[:2]
         if max(r.shape[:2]) <= 640:
@@ -703,8 +704,7 @@ def _eval_raw_maps(B=4, conf=0.01):
     class branch, on B letterboxed images: raw maps and the decode args."""
     from tpucv_torch.algorithms.yolov8 import yolo_decode_args
     from tpucv_torch.builder import export_from_registry
-    from tpucv_torch.ops.preprocess import (host_letterbox_geom,
-                                            letterbox_images)
+    from tpucv_torch.ops.preprocess import letterbox_images, normalize_images
 
     cfg, algo_cls, _ = export_from_registry("yolo8_det")
     algo = algo_cls(cfg, device="cuda")
@@ -716,15 +716,9 @@ def _eval_raw_maps(B=4, conf=0.01):
     rng = np.random.default_rng(1)
     imgs = [(rng.integers(0, 256, (480, 640, 3), np.uint8),)
             for _ in range(B)]
-    canv, hw, _, _ = algo._fill_canvases(imgs, range(B), B, 640)
-    geom, hs = host_letterbox_geom(hw, 640)
-    dev = torch.device("cuda")
-    from tpucv_torch.ops.preprocess import normalize_images
-    with torch.inference_mode():
-        lb, _, _ = letterbox_images(
-            torch.from_numpy(canv).to(dev), torch.from_numpy(hw).to(dev),
-            640, geom=torch.from_numpy(geom).to(dev),
-            scale=torch.from_numpy(hs).to(dev))
+    with torch.inference_mode(), algo._staged_batch(imgs, range(B), B) as (
+            canv, hw, geom, hs, _, _):
+        lb, _, _ = letterbox_images(canv, hw, 640, geom=geom, scale=hs)
         with torch.autocast("cuda", dtype=torch.bfloat16):
             raw = model(normalize_images(lb, algo.dtype))
     return raw, yolo_decode_args(cfg, algo.nc, conf)
@@ -1381,8 +1375,9 @@ def test_staged_detections_equal_the_pageable_path(monkeypatch):
     algo, model, index = _staging_setup()
     fill = algo._fill_canvases
 
-    def fresh(index, idxs, batch_size, C, out=None):
-        got = fill(index, idxs, batch_size, C)
+    def fresh(index, idxs, batch_size, C, out):
+        got = fill(index, idxs, batch_size, C,
+                   out=np.zeros((batch_size, C, C, 3), np.uint8))
         out[...] = got[0]
         return (out,) + tuple(got[1:])
 
@@ -1419,7 +1414,8 @@ def test_fill_after_a_non_blocking_upload_waits_for_its_copies():
     algo, _, index = _staging_setup()
     B, C = 8, algo.raw_canvas
     stage = algo._canvas_staging(B, C)
-    first = algo._fill_canvases(index[:B], range(B), B, C)
+    first = algo._fill_canvases(index[:B], range(B), B, C,
+                                out=np.empty((B, C, C, 3), np.uint8))
     algo._fill_canvases(index[:B], range(B), B, C, out=stage.canvases)
     geom, hscale = host_letterbox_geom(first[1], algo.input_size)
     torch.cuda._sleep(200_000_000)                   # ~0.1 s of the stream

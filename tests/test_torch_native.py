@@ -252,9 +252,11 @@ def test_read_image_and_fill_canvases_native_equal_cv2(tmp_path, monkeypatch):
     cfg, algo_cls, _ = export_from_registry("yolo8_det")
     algo = algo_cls(cfg, device="cpu")
     index = [(p,) for p in jpgs + [png]]
-    native = algo._fill_canvases(index, range(4), 5, 640)
+    native = algo._fill_canvases(index, range(4), 5, 640,
+                                 out=np.full((5, 640, 640, 3), 255, np.uint8))
     monkeypatch.setitem(ip._PARITY, "ok", False)
-    fallback = algo._fill_canvases(index, range(4), 5, 640)
+    fallback = algo._fill_canvases(
+        index, range(4), 5, 640, out=np.full((5, 640, 640, 3), 255, np.uint8))
     np.testing.assert_array_equal(native[0], fallback[0])
     np.testing.assert_array_equal(native[1], fallback[1])
     assert native[2] == fallback[2]

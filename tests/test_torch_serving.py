@@ -27,8 +27,7 @@ from tpucv.builder import export_from_registry as tpucv_export
 from tpucv_torch.builder import export_from_registry
 from tpucv_torch.ckpt.convert import from_flax_variables
 from tpucv_torch.decode.yolov8 import topk_candidates
-from tpucv_torch.ops.preprocess import (host_letterbox_geom,
-                                        letterbox_images, normalize_images)
+from tpucv_torch.ops.preprocess import letterbox_images, normalize_images
 from tpucv_torch.serving import make_server
 
 torch.set_num_threads(1)
@@ -111,14 +110,10 @@ def test_batched_detections_match_tpucv(both):
     assert all(len(r[3]) > 0 for r in ref)
 
     # NMS had work to do: valid candidates > 0 and kept < valid
-    canvases, hw, _, _ = palgo._fill_canvases(index, range(BATCH), BATCH,
-                                              palgo.raw_canvas)
-    geom, hscale = host_letterbox_geom(hw, palgo.input_size)
-    with torch.no_grad():
-        lb, _, _ = letterbox_images(
-            torch.from_numpy(canvases), torch.from_numpy(hw),
-            palgo.input_size, geom=torch.from_numpy(geom),
-            scale=torch.from_numpy(hscale))
+    with torch.no_grad(), palgo._staged_batch(index, range(BATCH), BATCH) \
+            as (canvases, hw, geom, hscale, _, _):
+        lb, _, _ = letterbox_images(canvases, hw, palgo.input_size,
+                                    geom=geom, scale=hscale)
         raw = model(normalize_images(lb, torch.float32))
         _, scores, _ = topk_candidates(raw, pre_nms_topk=1024)
     n_valid = (scores > 0).sum(1).tolist()
@@ -216,14 +211,10 @@ def test_bf16_served_path_within_tpucvs_own_bf16_error():
     palgo, model = _port(variables, True)
     index = [(img,) for img in _images()]
 
-    canvases, hw, _, _ = palgo._fill_canvases(index, range(BATCH), BATCH,
-                                              palgo.raw_canvas)
-    geom, hscale = host_letterbox_geom(hw, palgo.input_size)
-    with torch.inference_mode():
-        lb, _, _ = letterbox_images(
-            torch.from_numpy(canvases), torch.from_numpy(hw),
-            palgo.input_size, geom=torch.from_numpy(geom),
-            scale=torch.from_numpy(hscale))
+    with torch.inference_mode(), palgo._staged_batch(
+            index, range(BATCH), BATCH) as (canvases, hw, geom, hscale, _, _):
+        lb, _, _ = letterbox_images(canvases, hw, palgo.input_size,
+                                    geom=geom, scale=hscale)
         with torch.autocast("cpu", dtype=torch.bfloat16):
             port = model(normalize_images(lb, torch.bfloat16))
     u8 = jnp.asarray(lb.numpy())

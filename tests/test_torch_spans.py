@@ -12,9 +12,10 @@ spans the program puts where its work happens, on the CPU.
   serving program (YOLOv8n at 64², as ``tests/test_torch_export.py``
   builds it) and the compiled NMS hold no profiler node and the same nodes
   as with the span stubbed out, and give the same outputs bit for bit.
-- ``_batched_detections`` (YOLOv8n and YOLOv7 at 64²): each
-  ``tpucv.detect.*`` span and ``tpucv.nms`` closes once a call, and the
-  five stages cover at least 90% of the calls' host time.
+- ``_batched_detections`` (YOLOv8n and YOLOv7 at 64²) and YOLOv8-pose's
+  evaluation loop: each ``tpucv.detect.*`` span and ``tpucv.nms`` closes
+  once a call, and the five stages cover at least 90% of the calls' host
+  time.
 - The train step: each ``tpucv.train.*`` span closes once a step, and the
   forward, loss and backward once a micro-batch at ``grad_accum`` 2; the
   ``lap`` callback still gets the same stages in the same order.
@@ -157,21 +158,24 @@ def _algo(name):
     return algo, algo.init_variables(seed=0)
 
 
-@pytest.fixture(scope="module", params=["yolo8_det", "yolo7"])
+@pytest.fixture(scope="module", params=["yolo8_det", "yolo7", "yolo8_pose"])
 def detector(request):
+    """(the batched detect loop, model, index): ``_batched_detections``, or
+    YOLOv8-pose's evaluation loop, keypoints and all."""
     algo, model = _algo(request.param)
+    loop = getattr(algo, "_batched_pose_detections", algo._batched_detections)
     rng = np.random.default_rng(0)
     index = [(rng.integers(0, 255, (h, w, 3), dtype=np.uint8),)
              for h, w in ((48, 64), (64, 40), (30, 30), (64, 64), (20, 50))]
-    list(algo._batched_detections(model, index, 2, 0.25))      # warm
-    return algo, model, index
+    list(loop(model, index, 2, 0.25))      # warm
+    return loop, model, index
 
 
 def test_detect_spans_close_once_a_call(detector):
-    algo, model, index = detector
+    loop, model, index = detector
     profile.reset()
     t0 = time.perf_counter_ns()
-    out = list(algo._batched_detections(model, index, 2, 0.25))
+    out = list(loop(model, index, 2, 0.25))
     host_ns = time.perf_counter_ns() - t0
     assert [o[0] for o in out] == list(range(len(index)))
     calls = 3
@@ -184,9 +188,9 @@ def test_detect_spans_close_once_a_call(detector):
 
 def test_detect_results_made_before_the_first_yield(detector):
     """The caller's time between images is in no span."""
-    algo, model, index = detector
+    loop, model, index = detector
     profile.reset()
-    gen = algo._batched_detections(model, index[:2], 2, 0.25)
+    gen = loop(model, index[:2], 2, 0.25)
     next(gen)
     assert counts()["tpucv.detect.unbox"] == 1
     time.sleep(0.05)
@@ -220,13 +224,13 @@ def test_trace_puts_the_forward_inside_queue(tmp_path):
 def test_profiled_holds_the_traced_call_alone(detector):
     """A traced call between untraced ones: ``profiled`` gives that call's
     records, one a span, and none of the calls after it."""
-    algo, model, index = detector
+    loop, model, index = detector
     profile.reset()
-    list(algo._batched_detections(model, index[:2], 2, 0.25))
+    list(loop(model, index[:2], 2, 0.25))
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
-        list(algo._batched_detections(model, index[:2], 2, 0.25))
-    list(algo._batched_detections(model, index[:2], 2, 0.25))
+        list(loop(model, index[:2], 2, 0.25))
+    list(loop(model, index[:2], 2, 0.25))
     for name in DETECT + ["tpucv.nms"]:
         assert profile.profiled(name) == profile.recent(name, 2)[:1]
 

@@ -1,17 +1,19 @@
 """The batched detect loop's canvas staging (``algorithms/base.py``:
-``CanvasStaging``, ``_fill_canvases(out=)``), on the CPU.
+``CanvasStaging``, ``_fill_canvases``, ``_staged_batch``), on the CPU.
 
-- ``_fill_canvases`` into a reused buffer gives the bytes of a fresh
-  array, over three calls whose images shrink (every stale margin, and the
-  rows a short batch leaves empty, zeroed): raw ndarrays with one image
-  pre-shrunk, and JPEG paths through the native decode with a PNG among
-  them (a row the native code fails and cv2 places).
+- ``_fill_canvases`` into a reused buffer first filled with 255 gives the
+  bytes of tpucv's ``_fill_canvases`` (a fresh zeroed array), over three
+  calls whose images shrink (every stale margin, and the rows a short
+  batch leaves empty, zeroed): raw ndarrays with one image pre-shrunk, and
+  JPEG paths through the native decode with a PNG among them (a row the
+  native code fails and cv2 places).
 - ``_batched_detections`` reuses one staging while (B, C) holds (same
   memory, ``allocations`` 1, ``reuses`` a batch after the first) and
-  replaces it on a new batch size.
+  replaces it on a new batch size; YOLOv8-pose's evaluation loop and the
+  int8 calibration of ``quantize_variables`` take the same staging.
 - YOLOv8n and YOLOv7 at 64², over consecutive batches of mixed shapes
   with the staging first filled with 255: the detections equal those of
-  a run whose every canvas is a fresh zeroed array.
+  a run whose every canvas is tpucv's fresh array.
 - More threads than cores calling ``_batched_detections`` on one
   algorithm at once each get the results of a sequential run.
 """
@@ -25,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpucv.builder import export_from_registry as tpucv_export
 from tpucv_torch.algorithms.base import CanvasStaging
 from tpucv_torch.builder import export_from_registry
 from tpucv_torch.native import imagepipe
@@ -78,8 +81,15 @@ def _jpeg_batches(rng, tmp_path):
     return batches
 
 
+@pytest.fixture(scope="module")
+def tpucv_fill():
+    """tpucv's ``_fill_canvases``: each batch on a fresh zeroed array."""
+    cfg, algo_cls, _ = tpucv_export("yolo8_det")
+    return algo_cls(cfg)._fill_canvases
+
+
 @pytest.mark.parametrize("source", ["ndarray", "jpeg"])
-def test_reused_buffer_equals_fresh_array(source, tmp_path):
+def test_reused_buffer_equals_fresh_array(source, tmp_path, tpucv_fill):
     rng = np.random.default_rng(1)
     if source == "jpeg":
         assert imagepipe.available()
@@ -93,7 +103,7 @@ def test_reused_buffer_equals_fresh_array(source, tmp_path):
     B = 6
     buf = np.full((B, C, C, 3), 255, np.uint8)
     for index in batches:
-        fresh = algo._fill_canvases(index, range(len(index)), B, C)
+        fresh = tpucv_fill(index, range(len(index)), B, C)
         staged = algo._fill_canvases(index, range(len(index)), B, C, out=buf)
         assert staged[0] is buf
         _same(staged, fresh)
@@ -132,12 +142,31 @@ def test_one_staging_reused_while_the_shape_holds():
     assert CanvasStaging.reuses == reuses + 4 + 1
 
 
-def _fresh_run(algo, model, index, B, monkeypatch):
-    """``_batched_detections`` with every canvas a fresh zeroed array
-    (copied into the staging, which the upload reads)."""
-    fill = algo._fill_canvases
+@pytest.mark.parametrize("path", ["pose_eval", "int8_calibration"])
+def test_pose_and_calibration_take_the_staging(path):
+    """YOLOv8-pose's evaluation loop and ``quantize_variables``' batches go
+    through ``_staged_batch``: one staging for (B, C), reused by every
+    batch after the first."""
+    rng = np.random.default_rng(4)
+    index = [(im,) for im in _images(rng, SHAPES[:5], 0.1)]
+    algo = _algo("yolo8_pose" if path == "pose_eval" else "yolo8_det")
+    model = algo.init_variables(seed=0)
+    allocations, reuses = CanvasStaging.allocations, CanvasStaging.reuses
+    if path == "pose_eval":
+        out = list(algo._batched_pose_detections(model, index, 2, 0.25))
+        assert [o[0] for o in out] == list(range(len(index)))
+    else:
+        algo.quantize_variables(model, index, n_images=5, batch_size=2)
+    assert algo._staging.key == (2, C)
+    assert CanvasStaging.allocations == allocations + 1
+    assert CanvasStaging.reuses == reuses + 2
 
-    def fresh(index, idxs, batch_size, C, out=None):
+
+def _fresh_run(algo, model, index, B, fill, monkeypatch):
+    """``_batched_detections`` with every canvas tpucv's fresh zeroed array
+    (``fill``), copied into the staging, which the upload reads."""
+
+    def fresh(index, idxs, batch_size, C, out):
         got = fill(index, idxs, batch_size, C)
         out[...] = got[0]
         return (out,) + tuple(got[1:])
@@ -173,9 +202,10 @@ def detector(request):
     return algo, model, index
 
 
-def test_batched_detections_equal_a_fresh_array_run(detector, monkeypatch):
+def test_batched_detections_equal_a_fresh_array_run(detector, tpucv_fill,
+                                                    monkeypatch):
     algo, model, index = detector
-    want = _fresh_run(algo, model, index, 3, monkeypatch)
+    want = _fresh_run(algo, model, index, 3, tpucv_fill, monkeypatch)
     assert sum(len(b) for _, b, _, _ in want) > 0
     algo._staging.canvases[...] = 255
     got = list(algo._batched_detections(model, index, 3, 0.25))

@@ -15,6 +15,7 @@ import json
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor, wait
+from contextlib import contextmanager
 from typing import Dict, Optional
 
 import numpy as np
@@ -25,20 +26,11 @@ from tpucv_torch import quant
 from tpucv_torch.configs.dataset_cfg import get_dataset_cfg
 from tpucv_torch.ops.preprocess import (host_letterbox_geom, letterbox_images,
                                         normalize_images)
+from tpucv_torch.utils.device import resolve_device
 from tpucv_torch.utils.image_process import (letter_box, read_image,
                                              reverse_letter_box)
 from tpucv_torch.utils.profile import span
 from tpucv_torch.utils.visualize import show_detection_results
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``, refusing CUDA on a machine without it
-    rather than moving to the CPU silently."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available here; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
 
 
 def seeded_model(model: nn.Module, seed: int, device) -> nn.Module:
@@ -147,24 +139,22 @@ class DetectionAlgorithm:
         letterbox path (the forward under the algorithm's autocast) and
         return a copy of ``model`` with its int8 buffers (see
         ``tpucv_torch/quant.py``); ``model`` is not changed."""
-        s, C, dev = self.input_size, self.raw_canvas, self.device
+        s, dev = self.input_size, self.device
         n = min(n_images, len(index))
         if n == 0 or batch_size <= 0:
             raise ValueError("int8 calibration needs at least one image")
 
         def batches():
-            # one calibration batch on the device at a time
+            # one calibration batch on the device at a time, the staging
+            # read before it is yielded
             for start in range(0, n, batch_size):
                 idxs = list(range(start, min(start + batch_size, n)))
-                canvases, hw, _, _ = self._fill_canvases(
-                    index, idxs, batch_size, C)
-                geom, hscale = host_letterbox_geom(hw, s)
-                lb, _, _ = letterbox_images(
-                    torch.from_numpy(canvases).to(dev),
-                    torch.from_numpy(hw).to(dev), s,
-                    geom=torch.from_numpy(geom).to(dev),
-                    scale=torch.from_numpy(hscale).to(dev))
-                yield normalize_images(lb, self.dtype)
+                with self._staged_batch(index, idxs, batch_size) as (
+                        canvases, hw, geom, hscale, _, _):
+                    lb, _, _ = letterbox_images(canvases, hw, s, geom=geom,
+                                                scale=hscale)
+                    x = normalize_images(lb, self.dtype)
+                yield x
 
         with torch.autocast(dev.type, dtype=torch.bfloat16,
                             enabled=self.mixed_precision):
@@ -209,18 +199,16 @@ class DetectionAlgorithm:
         return max(self.RAW_CANVAS, self.input_size)
 
     def _fill_canvases(self, index, idxs, batch_size: int, C: int,
-                       out: Optional[np.ndarray] = None):
-        """Place one batch of images top-left on fixed uint8 canvases,
-        nearest pre-shrinking images larger than C. Each index item is a
-        tuple whose first entry is an RGB ndarray or an image path.
+                       out: np.ndarray):
+        """Place one batch of images top-left on ``out``, a C-contiguous
+        (batch_size, C, C, 3) uint8 array, whatever it held, nearest
+        pre-shrinking images larger than C; every byte outside the placed
+        images is zeroed, the rows past the batch's images included. Each
+        index item is a tuple whose first entry is an RGB ndarray or an
+        image path.
 
-        Returns (canvases (batch_size, C, C, 3), hw (batch_size, 2) placed
+        Returns (canvases, which is ``out``, hw (batch_size, 2) placed
         dims, oshapes original dims, prescales per-axis pre-shrink ratios).
-
-        ``out``: a C-contiguous (batch_size, C, C, 3) uint8 array to fill
-        in place and return as ``canvases``, whatever it held: every byte
-        outside the placed images is zeroed, so it comes out equal to the
-        fresh array made without it.
 
         Fast path: one threaded native call decodes a batch of JPEG paths
         (``native/imagepipe.cpp``, bit-identical to the loop below); what
@@ -230,15 +218,12 @@ class DetectionAlgorithm:
         """
         from tpucv_torch.native import imagepipe
 
-        if out is None:
-            canvases, stale = np.zeros((batch_size, C, C, 3), np.uint8), False
-        elif (out.shape == (batch_size, C, C, 3) and out.dtype == np.uint8
-              and out.flags.c_contiguous):
-            canvases, stale = out, True
-        else:
+        if not (out.shape == (batch_size, C, C, 3) and out.dtype == np.uint8
+                and out.flags.c_contiguous):
             raise ValueError(
                 f"out must be C-contiguous uint8 ({batch_size}, {C}, {C}, "
                 f"3); got {out.dtype} {out.shape}")
+        canvases = out
         hw = np.ones((batch_size, 2), np.int32)
         oshapes = [None] * len(idxs)
         prescales = [None] * len(idxs)
@@ -260,8 +245,7 @@ class DetectionAlgorithm:
         def place(j):
             canvas = canvases[j]
             if j >= len(srcs):
-                if stale:
-                    canvas[...] = 0
+                canvas[...] = 0
                 return
             if not done[j]:
                 src = srcs[j]
@@ -280,10 +264,9 @@ class DetectionAlgorithm:
                 hw[j] = (h, w)
                 oshapes[j] = (oh, ow)
                 prescales[j] = (w / ow, h / oh)
-            if stale:
-                h, w = hw[j]
-                canvas[:h, w:] = 0
-                canvas[h:] = 0
+            h, w = hw[j]
+            canvas[:h, w:] = 0
+            canvas[h:] = 0
 
         if self._placer is None:
             # the copies are bound by the host's memory: on the H100's
@@ -292,8 +275,7 @@ class DetectionAlgorithm:
             self._placer = ThreadPoolExecutor(
                 max(1, len(os.sched_getaffinity(0)) // 2),
                 thread_name_prefix="tpucv-canvas")
-        futures = [self._placer.submit(place, j)
-                   for j in range(batch_size if stale else len(srcs))]
+        futures = [self._placer.submit(place, j) for j in range(batch_size)]
         wait(futures)
         for f in futures:
             f.result()
@@ -310,16 +292,66 @@ class DetectionAlgorithm:
         self._staging = stage = CanvasStaging(batch_size, C, self.device)
         return stage
 
+    @contextmanager
+    def _staged_batch(self, index, idxs, batch_size: int):
+        """Items ``idxs`` of ``index`` filled into the algorithm's
+        ``CanvasStaging`` for (batch_size, C), with the letterbox geometry
+        (span ``tpucv.detect.fill``), and uploaded (``tpucv.detect.upload``):
+        yields (canvases, hw, geom, hscale) on the device, oshapes and
+        prescales. ``_staging_lock`` is held until the block exits, so read
+        the staging inside it (the CPU's upload hands it on uncopied)."""
+        C = self.raw_canvas
+        with self._staging_lock:
+            with span("tpucv.detect.fill"):
+                stage = self._canvas_staging(batch_size, C)
+                stage.wait()
+                _, hw, oshapes, prescales = self._fill_canvases(
+                    index, idxs, batch_size, C, out=stage.canvases)
+                # f64 letterbox geometry on host: exact reference arithmetic
+                geom, hscale = host_letterbox_geom(hw, self.input_size)
+            with span("tpucv.detect.upload"):
+                uploaded = stage.upload(self.device, hw, geom, hscale)
+            yield (*uploaded, oshapes, prescales)
+
+    def _detect_batches(self, model: nn.Module, index, batch_size: int,
+                        infer):
+        """``infer`` over ``index`` in batches of ``_staged_batch``, the
+        letterbox on the device (span ``tpucv.detect.queue``), fetched
+        (``tpucv.detect.download``): yields, a batch at a time, (idxs,
+        ``infer``'s outputs, the letterbox's scale and pad, oshapes,
+        prescales), the tensors as arrays, for the caller to map back to
+        image pixels in ``tpucv.detect.unbox``."""
+        n = len(index)
+        for start in range(0, n, batch_size):
+            idxs = list(range(start, min(start + batch_size, n)))
+            with torch.inference_mode(), self._staged_batch(
+                    index, idxs, batch_size) as (
+                    canvases, hw, geom, hscale, oshapes, prescales):
+                with span("tpucv.detect.queue"):
+                    lb, scale, pad = letterbox_images(
+                        canvases, hw, self.input_size, geom=geom,
+                        scale=hscale)
+                    outs = infer(model, lb)
+            with span("tpucv.detect.download"):
+                *outs, scale, pad = (t.cpu().numpy()
+                                     for t in (*outs, scale, pad))
+            yield idxs, outs, scale, pad, oshapes, prescales
+
+    @staticmethod
+    def _to_image(boxes, scale, pad, oshape, prescale):
+        """Letterboxed ``boxes`` in the original image's pixels (unclipped:
+        the evaluation protocol never clips boxes), and the per-axis
+        scales (sx, sy) from the image to the letterbox."""
+        sx, sy = float(scale) * prescale[0], float(scale) * prescale[1]
+        return (reverse_letter_box(boxes, (sx, sy), tuple(pad), oshape,
+                                   clip=False), sx, sy)
+
     def _batched_detections(self, model: nn.Module, index, batch_size: int,
                             conf_threshold: float):
-        """Batched loop with the letterbox on the device: the host places
-        each raw image on a fixed uint8 canvas; resize, pad, normalise,
-        forward, decode and NMS run on ``self.device``. Yields
-        (i, boxes xyxy in original pixels, scores, classes) per image.
-
-        The canvases are the algorithm's ``CanvasStaging`` for (B, C),
-        filled in place batch after batch: page-locked on CUDA, so the
-        upload does not block the host.
+        """Detections over ``index`` in batches (``_detect_batches``), the
+        canvases the algorithm's ``CanvasStaging``, page-locked on CUDA.
+        Yields (i, boxes xyxy in original pixels, scores, classes) per
+        image.
 
         Five spans (``utils.profile.span``) tile each batch: ``fill`` (the
         canvases and the letterbox geometry), ``upload`` (the host-to-
@@ -328,46 +360,17 @@ class DetectionAlgorithm:
         device) and ``unbox`` (every image's boxes back to original
         pixels), each ``tpucv.detect.<stage>``. A batch's results are all
         made before the first is yielded, so no span covers the caller."""
-        s = self.input_size
-        C = self.raw_canvas
-        dev = self.device
         infer = self.make_infer_fn(conf_threshold=conf_threshold)
-        n = len(index)
-        for start in range(0, n, batch_size):
-            idxs = list(range(start, min(start + batch_size, n)))
-            # one thread at a time from the fill until the letterbox has
-            # read the staging: the CPU's upload hands it on uncopied
-            with self._staging_lock:
-                with span("tpucv.detect.fill"):
-                    stage = self._canvas_staging(batch_size, C)
-                    stage.wait()
-                    _, hw, oshapes, prescales = self._fill_canvases(
-                        index, idxs, batch_size, C, out=stage.canvases)
-                    # f64 letterbox geometry on host: exact reference
-                    # arithmetic
-                    geom, hscale = host_letterbox_geom(hw, s)
-                with torch.inference_mode():
-                    with span("tpucv.detect.upload"):
-                        canvases_d, hw_d, geom_d, hscale_d = stage.upload(
-                            dev, hw, geom, hscale)
-                    with span("tpucv.detect.queue"):
-                        lb, scale, pad = letterbox_images(
-                            canvases_d, hw_d, s, geom=geom_d,
-                            scale=hscale_d)
-                        outs = infer(model, lb)
-            with span("tpucv.detect.download"):
-                boxes_b, scores_b, classes_b, valid_b, scale_b, pad_b = (
-                    t.cpu().numpy() for t in (*outs, scale, pad))
+        for idxs, outs, scale_b, pad_b, oshapes, prescales in \
+                self._detect_batches(model, index, batch_size, infer):
+            boxes_b, scores_b, classes_b, valid_b = outs
             with span("tpucv.detect.unbox"):
                 results = []
                 for j, i in enumerate(idxs):
                     v = valid_b[j]
-                    pre_x, pre_y = prescales[j]
-                    # clip=False: the evaluation protocol never clips boxes
-                    boxes = reverse_letter_box(
-                        boxes_b[j][v],
-                        (float(scale_b[j]) * pre_x, float(scale_b[j]) * pre_y),
-                        tuple(pad_b[j]), oshapes[j], clip=False)
+                    boxes, _, _ = self._to_image(
+                        boxes_b[j][v], scale_b[j], pad_b[j], oshapes[j],
+                        prescales[j])
                     results.append((i, boxes, scores_b[j][v],
                                     classes_b[j][v]))
             yield from results

@@ -20,10 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpucv_torch.algorithms.base import resolve_device, seeded_model
+from tpucv_torch.algorithms.base import seeded_model
 from tpucv_torch.models.vit import ViT
 from tpucv_torch.ops.preprocess import normalize_images
 from tpucv_torch.registry import model_registry
+from tpucv_torch.utils.device import resolve_device
 from tpucv_torch.utils.image_process import read_image
 
 

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from tpucv_torch import quant
-from tpucv_torch.algorithms.base import resolve_device, seeded_model
+from tpucv_torch.algorithms.base import seeded_model
 from tpucv_torch.configs.dataset_cfg import get_dataset_cfg
 from tpucv_torch.data.segmentation_dataset import VOC_COLORMAP
 from tpucv_torch.losses.segmentation import cross_entropy_loss, focal_loss
@@ -32,6 +32,7 @@ from tpucv_torch.metrics.seg_metrics import SegmentationMetrics
 from tpucv_torch.models.deeplabv3plus import DeeplabV3Plus
 from tpucv_torch.ops.preprocess import imagenet_normalize, normalize_images
 from tpucv_torch.registry import model_registry
+from tpucv_torch.utils.device import resolve_device
 from tpucv_torch.utils.image_process import read_image
 
 

@@ -21,10 +21,10 @@ from tpucv_torch.losses.yolov8_pose import yolov8_pose_loss
 from tpucv_torch.metrics.coco_map import (COCOKeypointAP, COCOMeanAP,
                                           OKS_SIGMAS)
 from tpucv_torch.models.yolov8 import Yolo8
-from tpucv_torch.ops.preprocess import host_letterbox_geom, letterbox_images
 from tpucv_torch.registry import model_registry
 from tpucv_torch.utils.image_process import (letter_box, read_image,
                                              reverse_letter_box)
+from tpucv_torch.utils.profile import span
 from tpucv_torch.utils.visualize import show_detection_results
 
 
@@ -77,41 +77,27 @@ class YOLOv8Pose(DetectionAlgorithm):
     # ------------------------------------------------------------ evaluate
     def _batched_pose_detections(self, model, index, batch_size: int,
                                  conf_threshold: float):
-        """The base harness's batched loop (letterbox on the device) with
-        the keypoints as well; boxes and keypoints mapped back to the
-        original image. Yields (i, boxes, scores, classes, kpts)."""
-        s = self.input_size
-        C = self.raw_canvas
-        dev = self.device
+        """The base harness's batched loop (``_detect_batches``, its five
+        spans) with the keypoints as well; boxes and keypoints mapped back
+        to the original image. Yields (i, boxes, scores, classes, kpts)."""
         infer = self.make_pose_infer_fn(conf_threshold)
-        n = len(index)
-        for start in range(0, n, batch_size):
-            idxs = list(range(start, min(start + batch_size, n)))
-            canvases, hw, oshapes, prescales = self._fill_canvases(
-                index, idxs, batch_size, C)
-            geom, hscale = host_letterbox_geom(hw, s)
-            with torch.inference_mode():
-                lb, scale, pad = letterbox_images(
-                    torch.from_numpy(canvases).to(dev),
-                    torch.from_numpy(hw).to(dev), s,
-                    geom=torch.from_numpy(geom).to(dev),
-                    scale=torch.from_numpy(hscale).to(dev))
-                outs = infer(model, lb)
-            boxes_b, scores_b, classes_b, valid_b, kpts_b, scale_b, pad_b = (
-                t.cpu().numpy() for t in (*outs, scale, pad))
-            for j, i in enumerate(idxs):
-                v = valid_b[j]
-                pre_x, pre_y = prescales[j]
-                sx = float(scale_b[j]) * pre_x
-                sy = float(scale_b[j]) * pre_y
-                # clip=False: the evaluation protocol never clips boxes
-                boxes = reverse_letter_box(
-                    boxes_b[j][v], (sx, sy), tuple(pad_b[j]), oshapes[j],
-                    clip=False)
-                kv = kpts_b[j][v].copy()
-                kv[..., 0] = (kv[..., 0] - float(pad_b[j][0])) / max(sx, 1e-9)
-                kv[..., 1] = (kv[..., 1] - float(pad_b[j][1])) / max(sy, 1e-9)
-                yield i, boxes, scores_b[j][v], classes_b[j][v], kv
+        for idxs, outs, scale_b, pad_b, oshapes, prescales in \
+                self._detect_batches(model, index, batch_size, infer):
+            boxes_b, scores_b, classes_b, valid_b, kpts_b = outs
+            with span("tpucv.detect.unbox"):
+                results = []
+                for j, i in enumerate(idxs):
+                    v = valid_b[j]
+                    boxes, sx, sy = self._to_image(
+                        boxes_b[j][v], scale_b[j], pad_b[j], oshapes[j],
+                        prescales[j])
+                    kv = kpts_b[j][v].copy()
+                    px, py = (float(p) for p in pad_b[j])
+                    kv[..., 0] = (kv[..., 0] - px) / max(sx, 1e-9)
+                    kv[..., 1] = (kv[..., 1] - py) / max(sy, 1e-9)
+                    results.append((i, boxes, scores_b[j][v],
+                                    classes_b[j][v], kv))
+            yield from results
 
     def build_eval_index(self, subset: str = "val"):
         """The person_keypoints COCO index under the dataset root when it

@@ -79,13 +79,13 @@ import torch
 from torch import nn
 
 from tpucv_torch import quant
-from tpucv_torch.algorithms.base import resolve_device
 from tpucv_torch.builder import export_from_registry
 from tpucv_torch.configs.base import OptimizerCfg
 from tpucv_torch.decode.yolov8 import decode_boxes
 from tpucv_torch.ops.preprocess import letterbox_static, normalize_images
 from tpucv_torch.probes.common import H100_BF16_FLOPS, card, timed
 from tpucv_torch.train.state import TrainState, make_train_step
+from tpucv_torch.utils.device import resolve_device
 
 # bench.py:bench_train_step's optimizer: optax.adam(1e-3) at a constant lr
 # (no warmup, no milestones) and an EMA of decay 0.9999

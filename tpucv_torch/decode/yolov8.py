@@ -11,7 +11,7 @@ import torch
 from tpucv_torch.nn.heads import dfl_project
 from tpucv_torch.ops.anchors import make_anchors
 from tpucv_torch.ops.boxes import dist2bbox
-from tpucv_torch.ops.nms import dispatch_batched_nms
+from tpucv_torch.ops.nms import class_offset_nms
 
 
 def raw_to_pred(
@@ -100,18 +100,8 @@ def decode_boxes(
     boxes, top_scores, top_cls, top_idx = topk_candidates(
         raw_maps, reg_max, strides, conf_threshold, pre_nms_topk,
         return_idx=True)
-    off = boxes + top_cls[..., None].to(boxes.dtype) * 7680.0
-    idx, valid = dispatch_batched_nms(off, top_scores, iou_threshold,
-                                      max_det)
-    idx = idx.long()
-    out_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
-    out_scores = torch.gather(top_scores, 1, idx)
-    out_scores = torch.where(valid, out_scores, torch.zeros_like(out_scores))
-    out_cls = torch.gather(top_cls, 1, idx)
-    valid = valid & (out_scores > conf_threshold)
-    out_boxes = torch.where(valid[..., None], out_boxes,
-                            torch.zeros_like(out_boxes))
+    *out, idx = class_offset_nms(boxes, top_scores, top_cls,
+                                 conf_threshold, iou_threshold, max_det)
     if return_idx:
-        return (out_boxes, out_scores, out_cls, valid,
-                torch.gather(top_idx, 1, idx))
-    return out_boxes, out_scores, out_cls, valid
+        return (*out, torch.gather(top_idx, 1, idx))
+    return tuple(out)

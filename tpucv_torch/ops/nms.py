@@ -131,8 +131,8 @@ def batched_single_label_nms(
     if xywh:
         top_boxes = xywh2xyxy(top_boxes)
     top_cls = torch.gather(best_cls, 1, top_idx)
-    return _class_offset_nms(top_boxes, top_scores, top_cls, conf_threshold,
-                             iou_threshold, max_det, class_agnostic)
+    return class_offset_nms(top_boxes, top_scores, top_cls, conf_threshold,
+                            iou_threshold, max_det, class_agnostic)[:4]
 
 
 def batched_non_max_suppression(
@@ -173,15 +173,17 @@ def non_max_suppression(
     return tuple(t[0] for t in out)
 
 
-def _class_offset_nms(top_boxes: torch.Tensor, top_scores: torch.Tensor,
-                      top_cls: torch.Tensor, conf_threshold: float,
-                      iou_threshold: float, max_det: int,
-                      class_agnostic: bool = False
-                      ) -> Tuple[torch.Tensor, ...]:
+def class_offset_nms(top_boxes: torch.Tensor, top_scores: torch.Tensor,
+                     top_cls: torch.Tensor, conf_threshold: float,
+                     iou_threshold: float, max_det: int,
+                     class_agnostic: bool = False
+                     ) -> Tuple[torch.Tensor, ...]:
     """Score-sorted (B, K) candidates, offset by class x 7680 px (unless
     ``class_agnostic``), through ``dispatch_batched_nms``; the kept ones
     gathered into fixed-shape (boxes, scores, classes, valid), valid only
-    above ``conf_threshold`` and zero elsewhere."""
+    above ``conf_threshold`` and zero elsewhere, and their positions on
+    the K axis (B, max_det) int64 as a fifth (the YOLOv8 decode gathers
+    each kept detection's anchor with them)."""
     off = top_boxes if class_agnostic else \
         top_boxes + top_cls[..., None].to(top_boxes.dtype) * 7680.0
     idx, valid = dispatch_batched_nms(off, top_scores, iou_threshold,
@@ -194,7 +196,7 @@ def _class_offset_nms(top_boxes: torch.Tensor, top_scores: torch.Tensor,
     valid = valid & (out_scores > conf_threshold)
     out_boxes = torch.where(valid[..., None], out_boxes,
                             torch.zeros_like(out_boxes))
-    return out_boxes, out_scores, out_cls, valid
+    return out_boxes, out_scores, out_cls, valid, idx
 
 
 def batched_non_max_suppression_multilabel(
@@ -228,5 +230,5 @@ def batched_non_max_suppression_multilabel(
     anchor = top_idx // nc
     cls = (top_idx % nc).to(torch.int32)
     cand = torch.gather(boxes, 1, anchor[..., None].expand(-1, -1, 4))
-    return _class_offset_nms(cand, top_scores, cls, conf_threshold,
-                             iou_threshold, max_det)
+    return class_offset_nms(cand, top_scores, cls, conf_threshold,
+                            iou_threshold, max_det)[:4]

@@ -31,11 +31,11 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from tpucv_torch.algorithms.base import resolve_device
 from tpucv_torch.configs.base import OptimizerCfg
 from tpucv_torch.nn.blocks import seed_dropout, set_data_parallel
 from tpucv_torch.parallel import mesh as pmesh
 from tpucv_torch.train.schedules import Schedule, warmup_multistep
+from tpucv_torch.utils.device import resolve_device
 from tpucv_torch.utils.profile import span
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]

@@ -45,7 +45,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpucv_torch.algorithms.base import resolve_device
 from tpucv_torch.ckpt.checkpoint import CheckPoint
 from tpucv_torch.ops.augment import AffineParams, augment_batch
 from tpucv_torch.ops.preprocess import normalize_images
@@ -54,6 +53,7 @@ from tpucv_torch.parallel import multihost
 from tpucv_torch.parallel.mesh import DataMesh, rank_device
 from tpucv_torch.train.state import (TrainState, make_eval_step,
                                      make_train_step)
+from tpucv_torch.utils.device import resolve_device
 
 
 class MeanMetric:

@@ -12,7 +12,9 @@ beside the kernels, copies and runtime calls it issued. Inside
 or exported graph gains no node from it.
 
 The program's spans: ``tpucv.detect.{fill,upload,queue,download,unbox}``
-tile each batch of ``DetectionAlgorithm._batched_detections``,
+tile each batch of ``DetectionAlgorithm._batched_detections`` and of
+YOLOv8-pose's evaluation (int8 calibration records ``fill`` and
+``upload``),
 ``tpucv.nms`` covers ``ops.nms.dispatch_batched_nms`` (either engine), and
 ``tpucv.train.{forward,loss,backward,optimizer}`` the stages of
 ``train.state.make_train_step``'s step, and
